@@ -1,0 +1,45 @@
+"""totsu_tpu_torch — the conic solver on PyTorch and CUDA (NVIDIA Hopper).
+
+A port of ``totsu_tpu`` that keeps its module names and public names: the
+homogeneous self-dual embedding of a conic LP
+
+    minimize    c^T x
+    subject to  A x + s = b,   s in K
+
+iterated with the diagonally preconditioned Pock-Chambolle method on a
+dense ``A``, over products of zero / nonnegative / second-order /
+rotated-second-order cones. Plain tensor code is PyTorch; the two kernels
+of the path are CUDA C++ for ``sm_90a`` (``csrc/``):
+
+  * ``dual_matvec`` — the fused {A u, A^T v} pair of every update and check;
+  * ``megakernel``  — the whole pdhg solve in one launch (``kernel='mega'``).
+
+Tensors carry their device: a solve runs where its data lies. On a CPU
+tensor each kernel wrapper runs its plain PyTorch version instead.
+
+Not ported yet (ROADMAP.md): the direct engine, ``accel='restart'``,
+resume / checkpoints, the fast profile, structured operators, the PSD /
+exp / pow / custom projections, the QCQP / SOCP / SDP / GP reductions,
+polish, diff, batching and distribution.
+"""
+
+from totsu_tpu_torch.solver.params import SolverParam, SolverStatus, SolverError
+from totsu_tpu_torch.solver.conic import (solve, solve_jit, solve_sequence,
+                                          SolveResult)
+from totsu_tpu_torch.solver.cone import (
+    ConeLayout, zero, rpos, soc, rsoc, psd, expc, powc, custom,
+)
+from totsu_tpu_torch.solver.operator import LinOp, DenseOp, as_linop
+from totsu_tpu_torch.problems import (
+    ConicProblem, ProbLP, ProbQP, MatBuild,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "SolverParam", "SolverStatus", "SolverError",
+    "solve", "solve_jit", "solve_sequence", "SolveResult",
+    "ConeLayout", "zero", "rpos", "soc", "rsoc", "psd", "expc", "powc", "custom",
+    "LinOp", "DenseOp", "as_linop",
+    "ConicProblem", "ProbLP", "ProbQP", "MatBuild",
+]

@@ -1,0 +1,90 @@
+"""ConicProblem: the solver-form problem record produced by all reductions."""
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from totsu_tpu_torch.solver.cone import ConeLayout
+from totsu_tpu_torch.solver.conic import solve, solve_jit, SolveResult
+from totsu_tpu_torch.solver.operator import LinOp
+from totsu_tpu_torch.solver.params import SolverParam
+
+
+@dataclasses.dataclass(frozen=True)
+class ConicProblem:
+    """A conic LP in solver form: min c^T x s.t. A x + s = b, s in K.
+
+    The common output of every Prob* reduction (the analogue of the
+    reference's ``problem()`` tuples, e.g. qp.rs:402-436); ``c``, ``b`` and
+    the operator's data are tensors on one device.
+    """
+    c: torch.Tensor
+    a: LinOp
+    b: torch.Tensor
+    cone: ConeLayout
+
+    @property
+    def shape(self):
+        return self.a.shape
+
+    def solve(self, param: SolverParam = SolverParam(),
+              warm_start=None) -> SolveResult:
+        """Solve; raises SolverError on non-convergence."""
+        return solve(self.c, self.a, self.b, self.cone, param,
+                     warm_start=warm_start)
+
+    def solve_jit(self, param: SolverParam = SolverParam(),
+                  warm_start=None) -> SolveResult:
+        """Solve; returns a status code, never raises on non-convergence."""
+        return solve_jit(self.c, self.a, self.b, self.cone, param,
+                         warm_start=warm_start)
+
+
+def _as_tensor(v) -> torch.Tensor:
+    """Tensors pass through; anything else goes through numpy, so Python
+    floats become f64 and numpy arrays keep their dtype (on the CPU)."""
+    if isinstance(v, torch.Tensor):
+        return v
+    return torch.from_numpy(np.array(v))
+
+
+def _asvec(v, rows=None, like=None):
+    """Coerce to a 1-D tensor; None -> zeros(rows) with ``like``'s dtype
+    and device."""
+    if v is None:
+        v = torch.zeros(0 if rows is None else rows, dtype=like.dtype,
+                        device=like.device)
+    v = _as_tensor(v)
+    if v.dim() == 2 and v.shape[1] == 1:
+        v = v[:, 0]
+    if v.dim() != 1:
+        raise ValueError(f"expected vector, got shape {tuple(v.shape)}")
+    return v
+
+
+def _asmat(a, rows, cols, like):
+    """Coerce to a 2-D tensor; None -> zeros((rows, cols)) with ``like``'s
+    dtype and device."""
+    if a is None:
+        a = torch.zeros(rows, cols, dtype=like.dtype, device=like.device)
+    a = _as_tensor(a)
+    if a.dim() != 2:
+        raise ValueError(f"expected matrix, got shape {tuple(a.shape)}")
+    return a
+
+
+def _from_matbuild(x):
+    """Accept MatBuild / arrays / None uniformly."""
+    from totsu_tpu_torch.problems.matbuild import MatBuild
+    if isinstance(x, MatBuild):
+        return x.to_array()
+    return x
+
+
+def _common(*ts):
+    """Cast tensors to their promoted dtype (they must share a device)."""
+    dtype = ts[0].dtype
+    for t in ts[1:]:
+        dtype = torch.promote_types(dtype, t.dtype)
+    return [t.to(dtype) for t in ts]

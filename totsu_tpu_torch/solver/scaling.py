@@ -1,0 +1,41 @@
+"""Ruiz equilibration of conic problem data (port of
+``totsu_tpu.solver.scaling``; the column-spread probe waits for ROADMAP
+§1 item 10).
+
+The problem  min c^T x  s.t.  A x + s = b, s in K  is replaced by
+
+    min (E c)^T x'  s.t.  (D A E) x' + s' = D b,  s' in K
+
+with positive diagonal D (rows) and E (cols) built by iterated inf-norm
+balancing; D is block-uniform over non-separable cone factors so that
+s' = D s stays in K. The solution maps back as x = E x', y = D y'.
+"""
+
+import torch
+
+from totsu_tpu_torch.solver.cone import ConeLayout
+from totsu_tpu_torch.solver.operator import LinOp
+
+
+def _group_max(cone: ConeLayout, r: torch.Tensor) -> torch.Tensor:
+    """Uniform block scaling keeps the cone invariant."""
+    return cone.group_reduce(r, torch.amax)
+
+
+def ruiz_equilibrate_op(a_op: LinOp, b: torch.Tensor, c: torch.Tensor,
+                        cone: ConeLayout, iters: int = 10):
+    """Return (a_op_s, b_s, c_s, d, e) with a_op_s = diag(d) A diag(e);
+    both absmaxes of a sweep are measured on the same operator before
+    either scaling is applied."""
+    m, n = a_op.shape
+    dtype = torch.promote_types(b.dtype, c.dtype)
+    d = torch.ones(m, dtype=dtype, device=b.device)
+    e = torch.ones(n, dtype=dtype, device=b.device)
+    for _ in range(iters):
+        row = _group_max(cone, a_op.row_absmax())
+        dr = 1.0 / torch.sqrt(torch.clamp(row, min=1e-8))
+        de = 1.0 / torch.sqrt(torch.clamp(a_op.col_absmax(), min=1e-8))
+        a_op = a_op.diag_scale(dr.to(dtype), de.to(dtype))
+        d = d * dr
+        e = e * de
+    return a_op, b * d, c * e, d, e
