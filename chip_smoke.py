@@ -2,13 +2,15 @@
 
     python3 chip_smoke.py
 
-Builds both CUDA kernels of the dense pdhg path from
-``totsu_tpu_torch/csrc`` (nvcc, sm_90a), holds each against its plain
-PyTorch version on the card, drives the solver's main path at full width
-(the n=1000 benchmark LP: A is 4000 x 1000 f32) and the megakernel path,
-and checks the answers. Each phase prints one line of its own numbers;
-any failed check raises, so the script exits non-zero and prints no final
-line. It needs a CUDA device and the repository beside it; it imports
+Builds the three CUDA kernels of the port from ``totsu_tpu_torch/csrc``
+(nvcc, sm_90a, all at once), holds each against its plain PyTorch version
+on the card, drives the solver's main paths at full width (the n=1000
+benchmark LP, A 4000 x 1000 f32, and the exp-cone logistic regression,
+A 7040 x 3040 f32, on the host loop; the n=100 LP, a QP, a GP and a
+pow/exp growth portfolio on the megakernel), and checks the answers
+against HiGHS, L-BFGS-B and SLSQP. Each phase prints one line of its own
+numbers; any failed check raises, so the script exits non-zero and prints
+no final line. It needs a CUDA device and the repository beside it; it imports
 nothing of JAX.
 
 The last two lines of standard output are the kernels' JSON record and
@@ -115,12 +117,334 @@ def make_qp(n, seed=0):
     return np.diag(p_diag), q, g, h
 
 
+def make_logreg(m, n, lam=0.1, seed=3):
+    """examples/logreg_expcone.py: its data generator and ``build``, in
+    numpy. L1-regularised logistic regression over m samples and n
+    features; variables z = [w (n) | t (m) | u (m) | v (m) | a (n)], each
+    softplus epigraph two exp blocks (z_i - t_i, 1, u_i), (-t_i, 1, v_i)
+    and a budget row u_i + v_i <= 1, |w_j| <= a_j as two R+ rows.
+    Returns (x, y, c, A, b, cone spec)."""
+    rng = np.random.default_rng(seed)
+    w_true = np.concatenate([rng.normal(size=n // 2) * 2.0,
+                             np.zeros(n - n // 2)])
+    x = rng.normal(size=(m, n))
+    y = np.where(x @ w_true + 0.3 * rng.normal(size=m) > 0, 1.0, -1.0)
+    nv = 2 * n + 3 * m
+    it, iu, iv = n + np.arange(m), n + m + np.arange(m), n + 2 * m + np.arange(m)
+    iw, ia = np.arange(n), n + 3 * m + np.arange(n)
+    a = np.zeros((m + 2 * n + 6 * m, nv))
+    b = np.zeros(m + 2 * n + 6 * m)
+    rows = np.arange(m)
+    a[rows, iu] = 1.0                         # 1 - u_i - v_i >= 0
+    a[rows, iv] = 1.0
+    b[:m] = 1.0
+    rj = m + 2 * np.arange(n)
+    a[rj, ia], a[rj, iw] = -1.0, 1.0          # a_j - w_j >= 0
+    a[rj + 1, ia], a[rj + 1, iw] = -1.0, -1.0  # a_j + w_j >= 0
+    e0 = m + 2 * n + 3 * rows                 # (z_i - t_i, 1, u_i)
+    a[e0, :n] = y[:, None] * x
+    a[e0, it] = 1.0
+    b[e0 + 1] = 1.0
+    a[e0 + 2, iu] = -1.0
+    e1 = m + 2 * n + 3 * m + 3 * rows         # (-t_i, 1, v_i)
+    a[e1, it] = 1.0
+    b[e1 + 1] = 1.0
+    a[e1 + 2, iv] = -1.0
+    c = np.zeros(nv)
+    c[n:n + m] = 1.0
+    c[n + 3 * m:] = lam
+    return x, y, c, a, b, [("rpos", (m + 2 * n,)), ("expc", (2 * m,))]
+
+
+def logreg_objective(x, y, w, lam):
+    return float(np.sum(np.logaddexp(0.0, -y * (x @ w)))
+                 + lam * np.abs(w).sum())
+
+
+def logreg_reference(x, y, lam):
+    """The L1-regularised logistic loss minimised by scipy's L-BFGS-B on
+    the split smooth form w = p - q, p, q >= 0; returns the objective."""
+    from scipy.optimize import minimize
+    n = x.shape[1]
+
+    def f(z):
+        w = z[:n] - z[n:]
+        mrg = -y * (x @ w)
+        g = x.T @ (-y / (1.0 + np.exp(-mrg)))   # d/dw of sum softplus
+        return (float(np.sum(np.logaddexp(0.0, mrg)) + lam * z.sum()),
+                np.concatenate([g + lam, -g + lam]))
+
+    r = minimize(f, np.zeros(2 * n), jac=True, method="L-BFGS-B",
+                 bounds=[(0.0, None)] * (2 * n),
+                 options={"maxiter": 20_000, "ftol": 1e-15, "gtol": 1e-10})
+    return logreg_objective(x, y, r.x[:n] - r.x[n:], lam)
+
+
+def make_gp_terms(n=100, n_con=100, k=4, seed=0):
+    """A random feasible, bounded GP: minimise sum_j 1/x_j subject to
+    n_con posynomials of k monomials (each over 3 random variables with
+    exponents in [0.2, 1]) scaled so f_i(1) = 0.5, and the box monomials
+    x_j / 10 <= 1. Returns (term_c, term_a) for ``problems.gp``."""
+    rng = np.random.default_rng(seed)
+    term_c, term_a = [np.ones(n)], [-np.eye(n)]
+    for _ in range(n_con):
+        ex = np.zeros((k, n))
+        for r in range(k):
+            ex[r, rng.choice(n, size=3, replace=False)] = rng.uniform(
+                0.2, 1.0, size=3)
+        coef = rng.uniform(0.5, 1.5, size=k)
+        term_c.append(coef * 0.5 / coef.sum())
+        term_a.append(ex)
+    for j in range(n):
+        term_c.append(np.array([0.1]))
+        term_a.append(np.eye(n)[j:j + 1])
+    return term_c, term_a
+
+
+def gp_reference(term_c, term_a):
+    """The GP's optimal value by scipy SLSQP on the log-form NLP: minimise
+    lse_0(A_0 y + log c_0) subject to lse_i(A_i y + log c_i) <= 0."""
+    from scipy.optimize import minimize
+    from scipy.special import logsumexp, softmax
+    lc = [np.log(ci) for ci in term_c]
+
+    def lse(i, yv):
+        return logsumexp(term_a[i] @ yv + lc[i])
+
+    def lse_grad(i, yv):
+        return softmax(term_a[i] @ yv + lc[i]) @ term_a[i]
+
+    cons = range(1, len(term_c))
+    r = minimize(lambda yv: lse(0, yv), np.zeros(term_a[0].shape[1]),
+                 jac=lambda yv: lse_grad(0, yv), method="SLSQP",
+                 constraints=[{
+                     "type": "ineq",
+                     "fun": lambda yv: -np.array([lse(i, yv) for i in cons]),
+                     "jac": lambda yv: -np.stack([lse_grad(i, yv)
+                                                  for i in cons])}],
+                 options={"maxiter": 1000, "ftol": 1e-12})
+    if not r.success:
+        fail(f"SLSQP on the GP: {r.message}")
+    return float(np.exp(r.fun))
+
+
+def make_growth(s_num=64, n=50, h_budget=-2.0, seed=0):
+    """examples/growthport_powexp.py: its data generator and
+    ``build_problem``, in numpy. Growth-optimal allocation over s_num
+    scenarios and n assets: the geometric mean as a binary tree of
+    pow(1/2) blocks, the entropy budget sum x log x <= H as n exp blocks.
+    Returns (returns, c, A, b, cone spec, index of the tree root)."""
+    rng = np.random.default_rng(seed)
+    returns = 1.0 + 0.3 * rng.standard_normal((s_num, n)) ** 2 \
+        - 0.1 * rng.random((s_num, n))
+    nv = 2 * n + s_num - 1    # x (n) | q (n) | tree nodes, root last
+    rows, bs = [], []
+
+    def row(coeffs, bval):
+        r = np.zeros(nv)
+        for idx, v in coeffs:
+            r[idx] = v
+        rows.append(r)
+        bs.append(bval)
+
+    row([(j, 1.0) for j in range(n)], 1.0)          # zero: sum x = 1
+    for j in range(n):
+        row([(j, -1.0)], 0.0)                       # R+: x >= 0
+    row([(n + j, 1.0) for j in range(n)], h_budget)  # R+: H - sum q >= 0
+    leaves = [("ret", i) for i in range(s_num)]
+    k = 0
+    while len(leaves) > 1:
+        nxt = []
+        for pair in zip(leaves[0::2], leaves[1::2]):
+            for kind, idx in pair:
+                if kind == "ret":
+                    row([(j, -returns[idx, j]) for j in range(n)], 0.0)
+                else:
+                    row([(2 * n + idx, -1.0)], 0.0)
+            row([(2 * n + k, -1.0)], 0.0)
+            nxt.append(("node", k))
+            k += 1
+        leaves = nxt
+    for j in range(n):                              # (-q_j, x_j, 1) in K_exp
+        row([(n + j, 1.0)], 0.0)
+        row([(j, -1.0)], 0.0)
+        row([], 1.0)
+    c = np.zeros(nv)
+    c[2 * n + k - 1] = -1.0   # maximise the root = the geometric mean
+    spec = [("zero", (1,)), ("rpos", (n + 1,)), ("powc", (0.5, k)),
+            ("expc", (n,))]
+    return returns, c, np.asarray(rows), np.asarray(bs), spec, 2 * n + k - 1
+
+
+def growth_reference(returns, h_budget):
+    """examples/growthport_powexp.py's oracle: SLSQP on the log-form NLP;
+    returns the optimal geometric mean."""
+    from scipy.optimize import minimize
+    n = returns.shape[1]
+    cons = [
+        {"type": "eq", "fun": lambda x: x.sum() - 1.0},
+        {"type": "ineq",
+         "fun": lambda x: h_budget - np.sum(x * np.log(np.maximum(x, 1e-12)))},
+    ]
+    r = minimize(lambda x: -np.mean(np.log(returns @ x)), np.full(n, 1.0 / n),
+                 method="SLSQP", bounds=[(0.0, 1.0)] * n, constraints=cons,
+                 options={"maxiter": 500, "ftol": 1e-12})
+    return float(np.exp(-r.fun))
+
+
+def cone(tt, spec):
+    """A ConeLayout of the port from a (factor name, args) spec."""
+    return tt.ConeLayout([getattr(tt, kind)(*args) for kind, args in spec])
+
+
+def print_ptxas(name, lib_path):
+    """The registers and spills ptxas reported for each kernel of a
+    library (from the build log; 'cached' when it was not built here)."""
+    log = lib_path.with_suffix(".log")
+    if not log.exists():
+        print(f"  ptxas {name}: cached library, no build log", flush=True)
+        return
+    entry = func = None
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif "Function properties for" in line:
+            func = line.rsplit(" ", 1)[-1]
+        elif "spill stores" in line:
+            print(f"  ptxas {name} {func}: {line.strip()}", flush=True)
+        elif "Used" in line and "registers" in line:
+            print(f"  ptxas {name} {entry}: {line.split(':', 1)[-1].strip()}",
+                  flush=True)
+
+
+def cone_blocks(kind, count, rng, alpha=0.5):
+    """(count, 3) f64 test blocks for the exp or pow cone: a fifth each of
+    random normal blocks, points in the cone, in the polar, in the
+    negative quadrant and on the boundary, each block scaled by 10^U(-6,
+    6)."""
+    q = count // 5
+    u = rng.random((q, 1)) + 0.01
+    normal = rng.normal(size=(count - 4 * q, 3))
+    if kind == "exp":
+        s = rng.random(q) + 0.1
+        r = rng.normal(size=q)
+        inside = np.stack([r, s, s * np.exp(r / s) * (1.0 + u[:, 0])], 1)
+        rp = rng.random(q) + 0.1
+        sp = rng.normal(size=q)
+        polar = np.stack([rp, sp, -rp * np.exp(sp / rp) / np.e
+                          * (1.0 + u[:, 0])], 1)
+        negq = np.stack([-rng.random(q), -rng.random(q),
+                         rng.normal(size=q)], 1)
+        bound = np.stack([r, s, s * np.exp(r / s)], 1)
+    else:
+        xy = rng.random((q, 2)) + 0.05
+        pv = xy[:, 0] ** alpha * xy[:, 1] ** (1.0 - alpha)
+        sign = np.where(rng.random(q) < 0.5, -1.0, 1.0)
+        inside = np.stack([xy[:, 0], xy[:, 1], sign * pv * u[:, 0] / 1.02],
+                          1)
+        dxy = rng.random((q, 2)) + 0.05
+        dv = (dxy[:, 0] / alpha) ** alpha \
+            * (dxy[:, 1] / (1.0 - alpha)) ** (1.0 - alpha)
+        polar = np.stack([-dxy[:, 0], -dxy[:, 1], sign * dv * u[:, 0] / 1.02],
+                         1)
+        negq = np.stack([-rng.random(q), -rng.random(q),
+                         sign * (5.0 + rng.random(q))], 1)
+        bound = np.stack([xy[:, 0], xy[:, 1], sign * pv], 1)
+    blocks = np.concatenate([normal, inside, polar, negq, bound])
+    return blocks * 10.0 ** rng.uniform(-6, 6, size=(count, 1))
+
+
+# operation counts of cone_exppow.cuh, counted from its source (adds,
+# multiplies, divides, compares and transcendental calls each 1): per
+# block outside the loops, per exp expansion trip (one evaluation of h),
+# per exp Newton-bisection trip (h and h'), per pow trip
+OPS_EXP_BLOCK, OPS_EXP_EXPAND, OPS_EXP_HYBRID = 35, 22, 42
+OPS_POW_BLOCK, OPS_POW_TRIP = 60, 58
+
+
+def cone_proj_ops(blocks, kind, alpha, dual):
+    """Operations the blocked projection does on these blocks: every
+    block's tests, plus the trips of the root finders that each block
+    runs until its state stops changing (the kernel's exit), counted by
+    running the plain version with a per-block trip count."""
+    from totsu_tpu_torch.ops.kernels import cone_proj as cp
+    from totsu_tpu_torch.solver import cone as cones
+    totals = []
+
+    def counting(step, state, trips):
+        done = torch.zeros(state[0].shape, dtype=torch.bool,
+                           device=state[0].device)
+        total = 0
+        for _ in range(trips):
+            nxt = step(state)
+            same = torch.stack([(a == b) | (a.isnan() & b.isnan())
+                                for a, b in zip(nxt, state)]).all(0)
+            total += int((~done).sum())
+            done |= same
+            if bool(done.all()):
+                break
+            state = nxt
+        totals.append(total)
+        return state
+
+    real = cones._fixed_trips
+    cones._fixed_trips = counting
+    try:
+        cp.cone_proj_plain(blocks, kind, alpha, dual)
+    finally:
+        cones._fixed_trips = real
+    count = blocks.shape[0]
+    if kind == "exp":
+        expand, hybrid = totals if totals else (0, 0)
+        return (count * OPS_EXP_BLOCK + expand * OPS_EXP_EXPAND
+                + hybrid * OPS_EXP_HYBRID)
+    return count * OPS_POW_BLOCK + sum(totals) * OPS_POW_TRIP
+
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, at its 700 W
+# power limit): HBM3 bandwidth, and f32 / f64 rates outside the tensor
+# cores
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
+
+
+def bound_ms(nbytes, ops, dtype=torch.float32):
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the peak rate; and which."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def profile_loop(fn, iters):
+    """Run ``fn()`` (``iters`` pdhg iterations) under torch.profiler:
+    (wall us, device-busy us, kernel launches) per iteration, from the
+    kernel rows only."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in rows)
+    count = sum(e.count for e in rows)
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:4]
+    return (1e6 * wall / iters, busy / iters, count / iters,
+            [(e.key[:40], e.self_device_time_total / iters) for e in top])
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
     import totsu_tpu_torch as tt
     from totsu_tpu_torch import interop
     from totsu_tpu_torch.ops.kernels import _build
+    from totsu_tpu_torch.ops.kernels import cone_proj as cp
     from totsu_tpu_torch.ops.kernels import dual_matvec as dm
     from totsu_tpu_torch.ops.kernels import megakernel as mk
 
@@ -134,15 +458,18 @@ def main():
           f"python {sys.version.split()[0]}; allow_tf32 matmul="
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
           f"{torch.backends.cudnn.allow_tf32}; card: {smi}", flush=True)
+    kernels = {"dual_matvec": dm, "megakernel": mk, "cone_proj": cp}
 
-    # ---- phase 1: build both kernels from the sources in the checkout
+    # ---- phase 1: build every kernel from the sources in the checkout,
+    # one nvcc per source, all started together
     t0 = time.perf_counter()
-    for name in ("dual_matvec", "megakernel"):
-        _build.load(name)
+    _build.build(kernels)
     build_s = time.perf_counter() - t0
     print("phase 1 build: " + ", ".join(
         f"{k} {v:.2f} s" for k, v in _build.build_seconds.items())
-        + f"; total {build_s:.2f} s", flush=True)
+        + f"; wall {build_s:.2f} s", flush=True)
+    for name in kernels:
+        print_ptxas(name, _build.library_path(name))
 
     # ---- phase 2: dual_matvec against its plain version
     # error bound: max |kernel - plain| <= rtol * max |plain| (f32 sums run
@@ -188,6 +515,10 @@ def main():
         times[str(dt)] = (statistics.median([k1, k2]),
                           statistics.median([p1, p2]),
                           device_ms(kern), device_ms(plain))
+    # the library call: cuBLAS's two GEMVs on the same f32 inputs
+    dm_library_ms = loop_ms(lambda: (torch.mv(a, u), torch.mv(a.t(), v)))
+    dm_bound = bound_ms(4 * 4000 * 1000 + 4 * 2 * (4000 + 1000),
+                        4 * 4000 * 1000)
 
     def fmt(x):
         return "n/a" if x is None else f"{x:.4f}"
@@ -199,7 +530,59 @@ def main():
           "kernel/plain] "
           + ", ".join(f"{k.split('.')[-1]} {t[0]:.4f}/{t[1]:.4f} "
                       f"[{fmt(t[2])}/{fmt(t[3])}]"
-                      for k, t in times.items()), flush=True)
+                      for k, t in times.items())
+          + f"; two torch.mv {dm_library_ms:.4f} ms; bound f32 "
+          f"{dm_bound[0]:.4f} ms ({dm_bound[1]})", flush=True)
+
+    # ---- phase 2b: the blocked exp/pow projection against its plain
+    # version: 2000 exp and 2000 pow blocks (500 at each alpha), primal
+    # and dual, f32 and f64. Error per block relative to the block's norm
+    # (a projection is positively homogeneous; the scales run 1e-12 to
+    # 1e12 apart). The two versions do the same arithmetic but round
+    # differently (the kernel contracts multiplies and adds into FMAs),
+    # and the root finders amplify that: near the pow root's |z0| endpoint
+    # an r-error of eps becomes a y-error of about sqrt(eps). Measured on
+    # an H100 for these inputs: 2.2e-7 (f32) and 2.1e-12 (f64); the
+    # bounds leave a factor of about 100
+    cp_tol = {torch.float32: 2e-5, torch.float64: 2e-10}
+    rng = np.random.default_rng(1)
+    exp_np = cone_blocks("exp", 2000, rng)
+    pow_np = np.concatenate([cone_blocks("pow", 500, rng, al)
+                             for al in (0.1, 0.3, 0.5, 0.9)])
+    alpha_np = np.repeat([0.1, 0.3, 0.5, 0.9], 500)
+    cp_err = {}
+    cp_times = {}
+    for dt in (torch.float32, torch.float64):
+        for kind, blk in (("exp", exp_np), ("pow", pow_np)):
+            xb = torch.tensor(blk, dtype=dt, device=dev)
+            al = (torch.tensor(alpha_np, dtype=dt, device=dev)
+                  if kind == "pow" else 0.0)
+            nrm = torch.linalg.vector_norm(xb.double(), dim=1).clamp(
+                min=1e-300)
+            for dual in (False, True):
+                got = cp.cone_proj_cuda(xb, kind, al, dual)
+                want = cp.cone_proj_plain(xb, kind, al, dual)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(got).all()),
+                      f"cone_proj {kind} {dt} dual={dual}: non-finite")
+                rel = float(((got - want).double().abs().amax(1) / nrm).max())
+                check(rel <= cp_tol[dt],
+                      f"cone_proj {kind} {dt} dual={dual}: max error "
+                      f"{rel:.3e} of the block norm > {cp_tol[dt]:g}")
+                cp_err[(kind, str(dt), dual)] = rel
+            k1 = loop_ms(lambda: cp.cone_proj_cuda(xb, kind, al, False))
+            p1 = loop_ms(lambda: cp.cone_proj_plain(xb, kind, al, False),
+                         calls=5, warmup=1)
+            cp_times[(kind, str(dt))] = (k1, p1)
+    print("phase 2b cone_proj vs plain (2000 exp, 2000 pow blocks at "
+          "alpha 0.1/0.3/0.5/0.9, scales 1e-6..1e6): max error / block "
+          "norm " + ", ".join(
+              f"{k} {d.split('.')[-1]} {'dual' if du else 'primal'} "
+              f"{e:.2e}" for (k, d, du), e in cp_err.items())
+          + f" (bounds f32 {cp_tol[torch.float32]:g}, f64 "
+          f"{cp_tol[torch.float64]:g}); ms per call kernel/plain "
+          + ", ".join(f"{k} {d.split('.')[-1]} {t[0]:.4f}/{t[1]:.2f}"
+                      for (k, d), t in cp_times.items()), flush=True)
 
     # ---- phase 3: the golden LP in f64 on the card
     c, a, b = interop.problem_from_numpy(
@@ -215,23 +598,43 @@ def main():
           f"{x.tolist()}, max |x - golden| {np.abs(x - golden).max():.3e}",
           flush=True)
 
-    # ---- the main path: the full-width LP through solve(), then the
-    # megakernel solves of the n=100 LP and the QP; launch counts are
-    # set to 0 just before and read just after
+    # ---- the main path, one solve per path through the entry points a
+    # user calls: the full-width LP and the full-width exp-cone logistic
+    # regression on the host loop; the megakernel solves of the n=100 LP,
+    # the QP, the GP and the growth portfolio. Every launch count is set
+    # to 0 just before each path and read just after it.
+    p_full = tt.SolverParam(accel="halpern", normalize=True, equil_iters=10,
+                            check_period=20, eps_acc=1e-3, max_iter=200_000)
+    p_mega = dataclasses.replace(p_full, kernel="mega")
+    # the GP and the growth portfolio at eps_acc 1e-4: at 1e-3 their
+    # epigraph variables and budgets sit loose enough (the growth
+    # portfolio's simplex sum at 1.004 on the CPU) that the comparison
+    # with SLSQP would measure the tolerance, not the solve
+    p_tight = dataclasses.replace(p_full, eps_acc=1e-4)
+    p_tight_mega = dataclasses.replace(p_tight, kernel="mega")
+    f32 = torch.float32
     c1, a1, b1 = make_lp(1000)
     lp_cone = tt.ConeLayout([tt.rpos(a1.shape[0])])
     c1t, a1t, b1t = interop.problem_from_numpy(c1, a1, b1, device=dev,
-                                               dtype=torch.float32)
-    p_full = tt.SolverParam(accel="halpern", normalize=True, equil_iters=10,
-                            check_period=20, eps_acc=1e-3, max_iter=200_000)
+                                               dtype=f32)
     c2, a2, b2 = make_lp(100)
     c2t, a2t, b2t = interop.problem_from_numpy(c2, a2, b2, device=dev,
-                                               dtype=torch.float32)
+                                               dtype=f32)
     lp2_cone = tt.ConeLayout([tt.rpos(a2.shape[0])])
-    qp_data = [torch.from_numpy(x).to(dev) for x in make_qp(50)]
-    qprob = tt.problems.qp(*qp_data)
-    # the megakernel solves use the full-width solve's settings
-    p_mega = dataclasses.replace(p_full, kernel="mega")
+    qprob = tt.problems.qp(*[torch.from_numpy(x).to(dev)
+                             for x in make_qp(50)])
+    lr_m, lr_n, lam = 1000, 20, 0.1
+    lr_x, lr_y, c4, a4, b4, lr_spec = make_logreg(lr_m, lr_n, lam)
+    c4t, a4t, b4t = interop.problem_from_numpy(c4, a4, b4, device=dev,
+                                               dtype=f32)
+    lr_cone = cone(tt, lr_spec)
+    gp_c, gp_a = make_gp_terms()
+    gprob, gmeta = tt.problems.gp(gp_c, gp_a, device=dev, dtype=f32)
+    h_budget = -2.0
+    returns, c6, a6, b6, gr_spec, gr_root = make_growth(64, 50, h_budget)
+    c6t, a6t, b6t = interop.problem_from_numpy(c6, a6, b6, device=dev,
+                                               dtype=f32)
+    gr_cone = cone(tt, gr_spec)
 
     recorded = []  # the megakernel's inputs, to hold it against its plain
     real_solve_mega = mk.solve_mega
@@ -240,28 +643,70 @@ def main():
         recorded.append((args, kwargs))
         return real_solve_mega(*args, **kwargs)
 
+    cp_recorded = {}  # the last cone_proj input of each kind (the inputs
+    real_cone_proj = cp.cone_proj_cuda  # are fresh tensors, never written)
+
+    def recording_cone_proj(blocks, kind, alpha=0.0, dual=False):
+        cp_recorded[dual] = (blocks, kind, alpha)
+        return real_cone_proj(blocks, kind, alpha, dual)
+
+    dm_recorded = {}  # the last dual_matvec input for each shape of A
+    real_dual_matvec = dm.dual_matvec_cuda
+
+    def recording_dual_matvec(a, u, v):
+        dm_recorded[tuple(a.shape)] = (a, u.clone(), v.clone())
+        return real_dual_matvec(a, u, v)
+
+    paths = {
+        "LP n=1000, host loop":
+            lambda: tt.solve(c1t, a1t, b1t, lp_cone, p_full),
+        "LP n=100, megakernel":
+            lambda: tt.solve(c2t, a2t, b2t, lp2_cone, p_mega),
+        "QP n=50, megakernel": lambda: qprob.solve(p_mega),
+        "logistic regression m=1000 n=20, host loop":
+            lambda: tt.solve(c4t, a4t, b4t, lr_cone, p_full),
+        "GP n=100, megakernel": lambda: gprob.solve(p_tight_mega),
+        "growth portfolio S=64 n=50, megakernel":
+            lambda: tt.solve(c6t, a6t, b6t, gr_cone, p_tight_mega),
+    }
     mk.solve_mega = recording_solve_mega
-    dm.launches = mk.launches = 0
-    t0 = time.perf_counter()
-    r_full = tt.solve(c1t, a1t, b1t, lp_cone, p_full)
-    torch.cuda.synchronize()
-    wall_full = time.perf_counter() - t0
-    dm_full = dm.launches
-    t0 = time.perf_counter()
-    r_lp_m = tt.solve(c2t, a2t, b2t, lp2_cone, p_mega)
-    torch.cuda.synchronize()
-    wall_lp_m = time.perf_counter() - t0
-    mk_lp = mk.launches
-    t0 = time.perf_counter()
-    r_qp_m = qprob.solve(p_mega)
-    torch.cuda.synchronize()
-    wall_qp_m = time.perf_counter() - t0
-    main_counts = {"dual_matvec": dm.launches, "megakernel": mk.launches}
-    mk.solve_mega = real_solve_mega
+    cp.cone_proj_cuda = recording_cone_proj
+    dm.dual_matvec_cuda = recording_dual_matvec
+    runs = {}
+    try:
+        for name, run in paths.items():
+            for mod in kernels.values():
+                mod.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs[name] = (res, wall, {k: mod.launches
+                                      for k, mod in kernels.items()})
+            print(f"  main path {name}: status {res.status}, {res.iters} "
+                  f"iterations, {wall:.3f} s, launches "
+                  f"{runs[name][2]}", flush=True)
+    finally:
+        mk.solve_mega = real_solve_mega
+        cp.cone_proj_cuda = real_cone_proj
+        dm.dual_matvec_cuda = real_dual_matvec
+    main_counts = {k: sum(r[2][k] for r in runs.values()) for k in kernels}
     for name, count in main_counts.items():
         check(count > 0, f"the main path launched {name} no time")
+    r_full, wall_full, cnt_full = runs["LP n=1000, host loop"]
+    r_lp_m, wall_lp_m, cnt_lp_m = runs["LP n=100, megakernel"]
+    r_qp_m, wall_qp_m, cnt_qp_m = runs["QP n=50, megakernel"]
+    r_lr, wall_lr, cnt_lr = runs["logistic regression m=1000 n=20, host loop"]
+    r_gp_m, wall_gp_m, cnt_gp_m = runs["GP n=100, megakernel"]
+    r_gr_m, wall_gr_m, cnt_gr_m = runs[
+        "growth portfolio S=64 n=50, megakernel"]
+    for what, cnt in (("LP n=100", cnt_lp_m), ("QP n=50", cnt_qp_m),
+                      ("GP", cnt_gp_m), ("growth portfolio", cnt_gr_m)):
+        check(cnt["megakernel"] == 1,
+              f"{what}: {cnt['megakernel']} megakernel launches per solve")
 
-    # ---- phase 4: full-width solve checks
+    # ---- phase 4: full-width LP checks
     from scipy.optimize import linprog
     check(r_full.converged, f"n=1000 LP status {r_full.status}")
     obj = float(np.dot(c1.astype(np.float64),
@@ -275,6 +720,7 @@ def main():
     rel = abs(obj - hi.fun) / max(1.0, abs(hi.fun))
     check(rel <= 5e-3, f"n=1000 objective {obj} vs HiGHS {hi.fun} "
           f"(rel {rel:.3e})")
+    dm_full = cnt_full["dual_matvec"]
     check(dm_full >= 2 * r_full.iters,
           f"{dm_full} dual_matvec launches < 2 x {r_full.iters} iterations")
     r_again = tt.solve(c1t, a1t, b1t, lp_cone, p_full)
@@ -289,28 +735,29 @@ def main():
           f"{hi.fun:.6f} (rel {rel:.2e}, HiGHS {highs_s:.2f} s); repeat "
           "solve: same iterations, bitwise-equal x", flush=True)
 
+    def rel_x(rm, rx, k):
+        xm, xx = rm.x[:k].double().cpu(), rx.x[:k].double().cpu()
+        return float((xm - xx).abs().max() / xx.abs().max().clamp(min=1.0))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
     # ---- phase 5: megakernel solves against the host loop
-    p_loop = p_full
-    t0 = time.perf_counter()
-    r_lp_x = tt.solve(c2t, a2t, b2t, lp2_cone, p_loop)
-    torch.cuda.synchronize()
-    wall_lp_x = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    r_qp_x = qprob.solve(p_loop)
-    torch.cuda.synchronize()
-    wall_qp_x = time.perf_counter() - t0
-    check(mk_lp == 1 and main_counts["megakernel"] == 2,
-          f"megakernel launches per solve: {mk_lp}, "
-          f"{main_counts['megakernel'] - mk_lp}")
+    r_lp_x, wall_lp_x = timed(lambda: tt.solve(c2t, a2t, b2t, lp2_cone,
+                                               p_full))
+    r_qp_x, wall_qp_x = timed(lambda: qprob.solve(p_full))
     rels = []
     for what, rm, rx, k in (("LP n=100", r_lp_m, r_lp_x, 100),
                             ("QP n=50", r_qp_m, r_qp_x, 50)):
         check(rm.converged and rx.converged,
               f"{what}: status mega {rm.status}, loop {rx.status}")
-        xm, xx = rm.x[:k].double().cpu(), rx.x[:k].double().cpu()
-        rel_x = float((xm - xx).abs().max() / xx.abs().max().clamp(min=1.0))
-        check(rel_x <= 1e-3, f"{what}: x differs by {rel_x:.3e} relative")
-        rels.append(rel_x)
+        rels.append(rel_x(rm, rx, k))
+        check(rels[-1] <= 1e-3, f"{what}: x differs by {rels[-1]:.3e} "
+              "relative")
     print(f"phase 5 megakernel vs host loop: LP n=100 {r_lp_m.iters}/"
           f"{r_lp_x.iters} iterations, {wall_lp_m:.3f}/{wall_lp_x:.3f} s; "
           f"QP n=50 {r_qp_m.iters}/{r_qp_x.iters} iterations, "
@@ -318,36 +765,207 @@ def main():
           f"{rels[0]:.2e}, {rels[1]:.2e}; 1 launch per mega solve",
           flush=True)
 
-    # the megakernel against its plain version (the host loop) on the
-    # inputs the main path gave it (the n=100 LP)
-    args, kwargs = recorded[0]
-    mk_s, out_k = sync_time(lambda: mk.solve_mega_cuda(*args, **kwargs), 3)
-    pl_s, out_p = sync_time(lambda: mk.solve_mega_plain(*args, **kwargs), 3)
-    check(out_k[3] == out_p[3] == tt.SolverStatus.CONVERGED,
-          f"megakernel status {out_k[3]}, plain {out_p[3]}")
-    mk_err = float((out_k[0][0] / out_k[0][3] - out_p[0][0] / out_p[0][3])
-                   .abs().max())
-    scale = float((out_p[0][0] / out_p[0][3]).abs().max())
-    check(mk_err <= 1e-3 * max(1.0, scale),
-          f"megakernel x/tau differs from plain by {mk_err:.3e}")
+    # ---- phase 6: the full-width exp-cone logistic regression (A 7040 x
+    # 3040 f32, 85.6 MB, beyond the 50 MB L2; R+(1040) and 2000 exp
+    # blocks) on the host loop: objective against L-BFGS-B within 5e-3
+    # relative (eps_acc 1e-3 lets the residuals and the gap sit near
+    # 1e-3), two cone_proj launches per iteration at least (dual and
+    # primal), a repeat solve bitwise equal
+    check(r_lr.converged, f"logistic regression status {r_lr.status}")
+    w = r_lr.x[:lr_n].double().cpu().numpy()
+    lr_obj = logreg_objective(lr_x, lr_y, w, lam)
+    t0 = time.perf_counter()
+    lr_ref = logreg_reference(lr_x, lr_y, lam)
+    lbfgs_s = time.perf_counter() - t0
+    lr_rel = abs(lr_obj - lr_ref) / abs(lr_ref)
+    check(lr_rel <= 5e-3, f"logistic regression objective {lr_obj} vs "
+          f"L-BFGS-B {lr_ref} (rel {lr_rel:.3e})")
+    check(cnt_lr["cone_proj"] >= 2 * r_lr.iters,
+          f"{cnt_lr['cone_proj']} cone_proj launches < 2 x {r_lr.iters} "
+          "iterations")
+    r_lr2 = tt.solve(c4t, a4t, b4t, lr_cone, p_full)
+    check(r_lr2.iters == r_lr.iters,
+          f"logistic regression repeat: {r_lr2.iters} iterations, not "
+          f"{r_lr.iters}")
+    check(torch.equal(r_lr2.x, r_lr.x), "logistic regression repeat: x "
+          "differs")
+    print(f"phase 6 logistic regression m=1000 n=20 (A {a4.shape[0]}x"
+          f"{a4.shape[1]} f32, 2000 exp blocks), host loop: CONVERGED in "
+          f"{r_lr.iters} iterations, {wall_lr:.3f} s, "
+          f"{r_lr.iters / wall_lr:.1f} iterations/s; launches "
+          f"{cnt_lr} ({cnt_lr['cone_proj'] / r_lr.iters:.2f} cone_proj and "
+          f"{cnt_lr['dual_matvec'] / r_lr.iters:.2f} dual_matvec per "
+          f"iteration); objective {lr_obj:.6f} vs L-BFGS-B {lr_ref:.6f} "
+          f"(rel {lr_rel:.2e}, {lbfgs_s:.2f} s); repeat solve: same "
+          "iterations, bitwise-equal x", flush=True)
 
+    # ---- phase 7: the GP (n = 100, 600 exp blocks, A 2001 x 701) on the
+    # megakernel against the host loop, and its objective against SLSQP
+    # on the log-form NLP (5e-3 relative); the objective and the
+    # constraints are evaluated at x = exp(y) of the solve
+    r_gp_x, wall_gp_x = timed(lambda: gprob.solve(p_tight))
+    gn = gmeta["n"]
+    check(r_gp_m.converged and r_gp_x.converged,
+          f"GP: status mega {r_gp_m.status}, loop {r_gp_x.status}")
+    gp_rel_x = rel_x(r_gp_m, r_gp_x, gn)
+    check(gp_rel_x <= 1e-3, f"GP: x differs by {gp_rel_x:.3e} relative")
+    t0 = time.perf_counter()
+    gp_ref = gp_reference(gp_c, gp_a)
+    slsqp_s = time.perf_counter() - t0
+    xg = np.exp(r_gp_m.x[:gn].double().cpu().numpy())
+    posy = [float(np.sum(ci * np.prod(xg[None, :] ** ai, axis=1)))
+            for ci, ai in zip(gp_c, gp_a)]
+    gp_rel = abs(posy[0] - gp_ref) / gp_ref
+    check(gp_rel <= 5e-3, f"GP objective {posy[0]} vs SLSQP {gp_ref} "
+          f"(rel {gp_rel:.3e})")
+    check(max(posy[1:]) <= 1.01, f"GP constraint at {max(posy[1:]):.4f}")
+    print(f"phase 7 GP n=100 (A {gprob.shape[0]}x{gprob.shape[1]} f32, 600 "
+          f"exp blocks): megakernel/host loop {r_gp_m.iters}/"
+          f"{r_gp_x.iters} iterations, {wall_gp_m:.3f}/{wall_gp_x:.3f} s; "
+          f"x rel diff {gp_rel_x:.2e}; objective {posy[0]:.6f} vs SLSQP "
+          f"{gp_ref:.6f} (rel {gp_rel:.2e}, {slsqp_s:.2f} s), max f_i "
+          f"{max(posy[1:]):.6f}; 1 launch per mega solve", flush=True)
+
+    # ---- phase 8: the growth portfolio (S = 64, n = 50: 63 pow(1/2) and
+    # 50 exp blocks) on the megakernel against the host loop, and against
+    # the example's SLSQP oracle (5e-3 relative)
+    r_gr_x, wall_gr_x = timed(lambda: tt.solve(c6t, a6t, b6t, gr_cone,
+                                               p_tight))
+    check(r_gr_m.converged and r_gr_x.converged,
+          f"growth: status mega {r_gr_m.status}, loop {r_gr_x.status}")
+    gr_rel_x = rel_x(r_gr_m, r_gr_x, 50)
+    check(gr_rel_x <= 1e-3, f"growth: x differs by {gr_rel_x:.3e} relative")
+    gr_ref = growth_reference(returns, h_budget)
+    growth = float(r_gr_m.x[gr_root])
+    gr_rel = abs(growth - gr_ref) / gr_ref
+    check(gr_rel <= 5e-3, f"growth {growth} vs SLSQP {gr_ref} "
+          f"(rel {gr_rel:.3e})")
+    alloc = r_gr_m.x[:50].double().cpu().numpy()
+    check(abs(alloc.sum() - 1.0) <= 1e-2, f"growth: sum x = {alloc.sum()}")
+    print(f"phase 8 growth portfolio S=64 n=50 (A {a6.shape[0]}x"
+          f"{a6.shape[1]} f32, 63 pow + 50 exp blocks): megakernel/host "
+          f"loop {r_gr_m.iters}/{r_gr_x.iters} iterations, "
+          f"{wall_gr_m:.3f}/{wall_gr_x:.3f} s; x rel diff {gr_rel_x:.2e}; "
+          f"growth {growth:.6f} vs SLSQP {gr_ref:.6f} (rel {gr_rel:.2e}); "
+          "1 launch per mega solve", flush=True)
+
+    # ---- phase 9: the megakernel against its plain version (the host
+    # loop) on the inputs the main path gave it: the n=100 LP and the GP
+    def mega_vs_plain(args, kwargs, plain_reps):
+        k_s, out_k = sync_time(lambda: mk.solve_mega_cuda(*args, **kwargs),
+                               3)
+        p_s, out_p = sync_time(lambda: mk.solve_mega_plain(*args, **kwargs),
+                               plain_reps)
+        check(out_k[3] == out_p[3] == tt.SolverStatus.CONVERGED,
+              f"megakernel status {out_k[3]}, plain {out_p[3]}")
+        xk, xp = out_k[0][0] / out_k[0][3], out_p[0][0] / out_p[0][3]
+        err = float((xk - xp).abs().max())
+        check(err <= 1e-3 * max(1.0, float(xp.abs().max())),
+              f"megakernel x/tau differs from plain by {err:.3e}")
+        m_, n_ = args[0].shape
+        bnd = bound_ms(4 * m_ * n_, 8 * m_ * n_ * out_k[2])
+        return out_k[2], out_p[2], k_s, p_s, err, bnd
+
+    mk_lp = mega_vs_plain(*recorded[0], plain_reps=3)
+    mk_gp = mega_vs_plain(*recorded[2], plain_reps=1)
+    print("phase 9 megakernel vs plain: " + "; ".join(
+        f"{what} {r[0]}/{r[1]} iterations, {1e3 * r[2]:.2f}/"
+        f"{1e3 * r[3]:.2f} ms, max |x err| {r[4]:.3e}, bound "
+        f"{r[5][0]:.4f} ms ({r[5][1]})"
+        for what, r in (("n=100 LP inputs", mk_lp), ("GP inputs", mk_gp))),
+        flush=True)
+
+    # dual_matvec on the last inputs each host-loop path gave it (the
+    # n=1000 LP's A 4000 x 1000 and the logistic regression's 7040 x 3040,
+    # both f32 after Ruiz scaling), at phase 2's f32 tolerance
+    dm_main = {}
+    for shape, (a_r, u_r, v_r) in sorted(dm_recorded.items()):
+        p, q = dm.dual_matvec_cuda(a_r, u_r, v_r)
+        pp, qp = dm.dual_matvec_plain(a_r, u_r, v_r)
+        err = max(float((p - pp).abs().max()), float((q - qp).abs().max()))
+        scale = max(float(pp.abs().max()), float(qp.abs().max()))
+        rtol = rtols[a_r.dtype]
+        check(err <= rtol * scale,
+              f"dual_matvec on the main path's {shape} inputs: max err "
+              f"{err:.3e} > {rtol:g} * {scale:.3e}")
+        dm_main[shape] = (err, device_ms(
+            lambda: dm.dual_matvec_cuda(a_r, u_r, v_r)), device_ms(
+            lambda: dm.dual_matvec_plain(a_r, u_r, v_r)))
+    check(tuple(a4.shape) in dm_main, "the logistic regression's "
+          "dual_matvec inputs were not recorded")
+    print("dual_matvec on the main path's inputs: " + "; ".join(
+        f"A {m_}x{n_} {dm_recorded[(m_, n_)][0].dtype}: max abs err "
+        f"{r[0]:.3e} (bound {rtols[dm_recorded[(m_, n_)][0].dtype]:g} of "
+        f"the largest output), device ms kernel/plain {fmt(r[1])}/"
+        f"{fmt(r[2])}" for (m_, n_), r in dm_main.items()), flush=True)
+
+    # cone_proj on the last inputs the logistic regression's host loop
+    # gave it (2000 f32 exp blocks, primal and dual)
+    cp_main = {}
+    for dual, (blk, kind, al) in cp_recorded.items():
+        got = cp.cone_proj_cuda(blk, kind, al, dual)
+        want = cp.cone_proj_plain(blk, kind, al, dual)
+        err = float((got - want).abs().max())
+        nrm = torch.linalg.vector_norm(blk.double(), dim=1).clamp(min=1e-300)
+        rel = float(((got - want).double().abs().amax(1) / nrm).max())
+        check(rel <= cp_tol[blk.dtype],
+              f"cone_proj on the main path's inputs: {rel:.3e}")
+        k_ms = loop_ms(lambda: cp.cone_proj_cuda(blk, kind, al, dual))
+        p_ms = loop_ms(lambda: cp.cone_proj_plain(blk, kind, al, dual),
+                       calls=5, warmup=1)
+        ops = cone_proj_ops(blk, kind, al, dual)
+        cp_main[dual] = (err, k_ms, p_ms,
+                         bound_ms(2 * blk.numel() * blk.element_size(), ops,
+                                  blk.dtype), ops, blk.shape[0])
+    print("cone_proj on the logistic regression's inputs: " + "; ".join(
+        f"{'dual' if du else 'primal'} {r[5]} blocks: max abs err "
+        f"{r[0]:.3e}, {r[1]:.4f}/{r[2]:.2f} ms kernel/plain, {r[4]} "
+        f"operations, bound {r[3][0]:.6f} ms ({r[3][1]})"
+        for du, r in cp_main.items()), flush=True)
+
+    # ---- phase 10: where the host loop's time goes, 200 iterations of
+    # each host-loop cell under torch.profiler (kernel rows only)
+    p_prof = dataclasses.replace(p_full, max_iter=200)
+    for what, fn in (
+            ("LP n=1000", lambda: tt.solve_jit(c1t, a1t, b1t, lp_cone,
+                                               p_prof)),
+            ("logistic regression", lambda: tt.solve_jit(
+                c4t, a4t, b4t, lr_cone, p_prof))):
+        wall_us, busy_us, nlaunch, top = profile_loop(fn, 200)
+        print(f"phase 10 profile {what}, host loop, 200 iterations: "
+              f"{wall_us:.1f} us wall and {busy_us:.1f} us device-busy per "
+              f"iteration ({100 * busy_us / wall_us:.1f}% busy), "
+              f"{nlaunch:.1f} kernel launches per iteration; top kernels "
+              "(us per iteration) " + ", ".join(
+                  f"{k} {t:.1f}" for k, t in top), flush=True)
+
+    primal = cp_main[False]
     record = {"kernels": [
         {"name": "dual_matvec", "route": "cuda",
          "source": "totsu_tpu_torch/csrc/dual_matvec.cu",
          "replaces": "totsu_tpu/ops/pallas/dual_matvec.py:54",
          "launches": main_counts["dual_matvec"],
-         "max_abs_err": dm_err[(4000, 1000, str(torch.float32))],
+         "max_abs_err": max(r[0] for r in dm_main.values()),
          "ms": times[str(torch.float32)][0],
-         "plain_ms": times[str(torch.float32)][1]},
+         "plain_ms": times[str(torch.float32)][1],
+         "bound_ms": dm_bound[0], "bound_by": dm_bound[1],
+         "library_ms": dm_library_ms},
         {"name": "megakernel", "route": "cuda",
          "source": "totsu_tpu_torch/csrc/megakernel.cu",
          "replaces": "totsu_tpu/ops/pallas/megakernel.py:184",
          "launches": main_counts["megakernel"],
-         "max_abs_err": mk_err, "ms": 1e3 * mk_s, "plain_ms": 1e3 * pl_s},
+         "max_abs_err": mk_gp[4], "ms": 1e3 * mk_gp[2],
+         "plain_ms": 1e3 * mk_gp[3], "bound_ms": mk_gp[5][0],
+         "bound_by": mk_gp[5][1], "library_ms": None},
+        {"name": "cone_proj", "route": "cuda",
+         "source": "totsu_tpu_torch/csrc/cone_proj.cu",
+         "replaces": "totsu_tpu/solver/cone.py:368",
+         "launches": main_counts["cone_proj"],
+         "max_abs_err": max(r[0] for r in cp_main.values()),
+         "ms": primal[1], "plain_ms": primal[2],
+         "bound_ms": primal[3][0], "bound_by": primal[3][1],
+         "library_ms": None},
     ]}
-    print(f"megakernel vs plain on the n=100 LP inputs: {out_k[2]}/"
-          f"{out_p[2]} iterations, {1e3 * mk_s:.2f}/{1e3 * pl_s:.2f} ms, "
-          f"max |x err| {mk_err:.3e}", flush=True)
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,149 @@
+"""The parts of ``chip_smoke.py`` that run without a card.
+
+The smoke script copies two examples' problem builders as numpy code (it
+imports nothing of the JAX package); here they are held to the examples'
+own builders, exactly. Its instance generators, references and bound
+arithmetic run on the CPU at small sizes, and the script refuses to run
+without a CUDA device.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke as cs
+from totsu_tpu_torch.ops.kernels import cone_proj as cp
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "examples"))
+
+
+def _spec(layout):
+    return [(f.kind, f.dim, f.count, f.alpha) for f in layout.factors]
+
+
+def test_make_logreg_is_the_example_build():
+    import logreg_expcone
+    import totsu_tpu_torch as tt
+    x, y, c, a, b, spec = cs.make_logreg(24, 6, 0.1)
+    cj, aj, bj, lay = logreg_expcone.build(x, y, 0.1)
+    np.testing.assert_array_equal(c, cj)
+    np.testing.assert_array_equal(a, aj)
+    np.testing.assert_array_equal(b, bj)
+    assert _spec(cs.cone(tt, spec)) == _spec(lay)
+    # the example's data generator (its main, seed 3)
+    rng = np.random.default_rng(3)
+    w_true = np.concatenate([rng.normal(size=3) * 2.0, np.zeros(3)])
+    xe = rng.normal(size=(24, 6))
+    ye = np.where(xe @ w_true + 0.3 * rng.normal(size=24) > 0, 1.0, -1.0)
+    np.testing.assert_array_equal(x, xe)
+    np.testing.assert_array_equal(y, ye)
+
+
+def test_make_growth_is_the_example_build():
+    import growthport_powexp
+    import totsu_tpu_torch as tt
+    returns, c, a, b, spec, root = cs.make_growth(8, 6, -1.2)
+    cj, aj, bj, lay, root_j = growthport_powexp.build_problem(returns, -1.2)
+    np.testing.assert_array_equal(c, cj)
+    np.testing.assert_array_equal(a, aj)
+    np.testing.assert_array_equal(b, bj)
+    assert root == root_j
+    assert _spec(cs.cone(tt, spec)) == _spec(lay)
+
+
+def test_references_at_small_size():
+    # the oracles agree with the port's f64 solves on small instances, to
+    # 1e-3 relative (eps_acc 1e-5 bounds the residuals and the gap)
+    import totsu_tpu_torch as tt
+    from totsu_tpu_torch import interop
+    param = tt.SolverParam(max_iter=200_000, eps_acc=1e-5)
+    x, y, c, a, b, spec = cs.make_logreg(24, 6)
+    r = tt.solve(*interop.problem_from_numpy(c, a, b, device="cpu"),
+                 cs.cone(tt, spec), param)
+    obj = cs.logreg_objective(x, y, r.x[:6].numpy(), 0.1)
+    assert abs(obj - cs.logreg_reference(x, y, 0.1)) <= 1e-3 * abs(obj)
+    term_c, term_a = cs.make_gp_terms(n=6, n_con=4)
+    prob, meta = tt.problems.gp(term_c, term_a, device="cpu")
+    r = prob.solve(param)
+    f0 = np.sum(term_c[0] * np.prod(np.exp(r.x[:6].numpy())[None, :]
+                                    ** term_a[0], axis=1))
+    assert abs(f0 - cs.gp_reference(term_c, term_a)) <= 1e-3 * f0
+    returns, c, a, b, spec, root = cs.make_growth(4, 6, -1.2)
+    r = tt.solve(*interop.problem_from_numpy(c, a, b, device="cpu"),
+                 cs.cone(tt, spec), param)
+    g_ref = cs.growth_reference(returns, -1.2)
+    assert abs(float(r.x[root]) - g_ref) <= 1e-3 * g_ref
+
+
+@pytest.mark.parametrize("kind,alpha", [("exp", 0.5), ("pow", 0.1),
+                                        ("pow", 0.9)])
+def test_cone_blocks_cover_every_case(kind, alpha):
+    # a fifth each: random, in the cone, in the polar, in the negative
+    # quadrant, on the boundary; the projection keeps the cone points,
+    # zeroes the polar points and moves the others
+    rng = np.random.default_rng(0)
+    blocks = cs.cone_blocks(kind, 500, rng, alpha)
+    xb = torch.from_numpy(blocks)
+    out = cp.cone_proj(xb, kind, alpha).numpy()
+    inside, polar = slice(100, 200), slice(200, 300)
+    np.testing.assert_allclose(out[inside], blocks[inside], rtol=1e-12)
+    assert np.all(out[polar] == 0.0)
+    scale = np.abs(blocks).max(1)
+    assert np.all(np.abs(out[300:400] - blocks[300:400]).max(1)
+                  > 1e-6 * scale[300:400])
+    assert scale.min() < 1e-4 and scale.max() > 1e4
+
+
+def test_cone_proj_ops_counts_the_trips():
+    # the counting pass leaves the result alone and counts each block's
+    # trips until its state stops changing: in the cone, no trip
+    rng = np.random.default_rng(2)
+    xb = torch.from_numpy(cs.cone_blocks("exp", 100, rng))
+    before = cp.cone_proj(xb, "exp")
+    ops = cs.cone_proj_ops(xb, "exp", 0.0, False)
+    torch.testing.assert_close(cp.cone_proj(xb, "exp"), before, rtol=0,
+                               atol=0)
+    assert ops > 100 * cs.OPS_EXP_BLOCK
+    inside = torch.tensor([[0.0, 1.0, 2.0]] * 10, dtype=torch.float64)
+    assert cs.cone_proj_ops(inside, "exp", 0.0, False) \
+        == 10 * cs.OPS_EXP_BLOCK
+    assert cs.cone_proj_ops(inside, "pow", 0.5, False) \
+        > 10 * cs.OPS_POW_BLOCK  # (0, 1, 2) is outside the pow cone
+
+
+def test_bound_arithmetic():
+    # dual_matvec at 4000 x 1000 f32: A's 16 MB over 3.35 TB/s, 4.8 us
+    ms, by = cs.bound_ms(4 * 4000 * 1000, 4 * 4000 * 1000)
+    assert by == "bytes" and abs(ms - 16e6 / 3.35e12 * 1e3) < 1e-9
+    ms, by = cs.bound_ms(1000, 67e9)
+    assert by == "operations" and abs(ms - 1.0) < 1e-12
+
+
+def test_smoke_refuses_without_cuda(tmp_path):
+    # no card: a non-zero exit and no result line; alone in a directory
+    # (without the repository): the same
+    code = ("import sys, torch; torch.cuda.is_available = lambda: False; "
+            f"sys.argv = ['chip_smoke.py']; sys.path.insert(0, {cs.ROOT!r}); "
+            "import chip_smoke; chip_smoke.main()")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text(open(cs.__file__).read())
+    out = subprocess.run([sys.executable, str(alone)], capture_output=True,
+                         text=True, cwd=tmp_path)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+def test_mega_timing_refuses_without_cuda():
+    script = os.path.join(cs.ROOT, "mega_timing.py")
+    code = ("import sys, runpy, torch; torch.cuda.is_available = "
+            f"lambda: False; sys.argv = [{script!r}]; "
+            f"runpy.run_path({script!r}, run_name='__main__')")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr

@@ -34,7 +34,7 @@ def small_lp(n=24, m=60, seed=0):
 def _both(c, a, b, cone_j, pj, warm=None):
     rj = jt.solve_jit(jnp.asarray(c), jnp.asarray(a), jnp.asarray(b),
                       cone_j, pj, warm_start=warm)
-    ct, at, bt = interop.problem_from_numpy(c, a, b)
+    ct, at, bt = interop.problem_from_numpy(c, a, b, device="cpu")
     warm_t = None if warm is None else tuple(
         torch.from_numpy(np.array(w)) for w in warm)
     rt = tt.solve_jit(ct, at, bt, interop.cone_from_reference(cone_j),
@@ -87,7 +87,8 @@ def test_small_lp_matches_jax_f32_bf16_matvec():
     rj = jt.solve_jit(jnp.asarray(c, jnp.float32), jnp.asarray(a, jnp.float32),
                       jnp.asarray(b, jnp.float32), jt.ConeLayout([jt.rpos(m)]),
                       jt.SolverParam(**kw))
-    ct, at, bt = interop.problem_from_numpy(c, a, b, dtype=torch.float32)
+    ct, at, bt = interop.problem_from_numpy(c, a, b, device="cpu",
+                                            dtype=torch.float32)
     rt = tt.solve_jit(ct, at, bt, tt.ConeLayout([tt.rpos(m)]),
                       tt.SolverParam(**kw))
     assert rt.status == int(rj.status) == tt.SolverStatus.CONVERGED
@@ -107,10 +108,10 @@ def test_certificates_match_jax(g, h, status):
     with pytest.raises(jt.SolverError) as ej:
         jlp(c=[1.0], g=g, h=h).solve(jt.SolverParam(**param))
     with pytest.raises(tt.SolverError) as et:
-        tlp(c=[1.0], g=g, h=h).solve(tt.SolverParam(**param))
+        tlp(c=[1.0], g=g, h=h, device="cpu").solve(tt.SolverParam(**param))
     assert int(et.value.status) == int(ej.value.status) == status
     rj = jlp(c=[1.0], g=g, h=h).solve_jit(jt.SolverParam(**param))
-    rt = tlp(c=[1.0], g=g, h=h).solve_jit(tt.SolverParam(**param))
+    rt = tlp(c=[1.0], g=g, h=h, device="cpu").solve_jit(tt.SolverParam(**param))
     assert rt.status == int(rj.status)
     assert rt.iters == int(rj.iters)
 
@@ -132,7 +133,7 @@ def test_solve_sequence_warm_starts():
     c, a, b, m = small_lp(seed=3)
     cone = tt.ConeLayout([tt.rpos(m)])
     param = tt.SolverParam(max_iter=60_000, eps_acc=1e-3, check_period=10)
-    ct, at, bt = interop.problem_from_numpy(c, a, b)
+    ct, at, bt = interop.problem_from_numpy(c, a, b, device="cpu")
     r1, r2 = tt.solve_sequence([(ct, at, bt, cone), (ct, at, bt, cone)],
                                param)
     assert r1.converged and r2.converged
@@ -143,7 +144,7 @@ def test_dual_matvec_counts_only_launches():
     # the CPU solve goes through the plain version: no launch is counted
     c, a, b, m = small_lp(seed=4)
     before = dm.launches
-    ct, at, bt = interop.problem_from_numpy(c, a, b)
+    ct, at, bt = interop.problem_from_numpy(c, a, b, device="cpu")
     tt.solve_jit(ct, at, bt, tt.ConeLayout([tt.rpos(m)]),
                  tt.SolverParam(max_iter=100, eps_acc=1e-3))
     assert dm.launches == before
@@ -162,7 +163,7 @@ def test_dual_matvec_counts_only_launches():
         "chunk_iters", "polish", "row_sharding"])
 def test_unported_features_raise(kw, solve_kw):
     c, a, b, m = small_lp(seed=5)
-    ct, at, bt = interop.problem_from_numpy(c, a, b)
+    ct, at, bt = interop.problem_from_numpy(c, a, b, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tt.solve(ct, at, bt, tt.ConeLayout([tt.rpos(m)]),
                  tt.SolverParam(max_iter=10, **kw), **solve_kw)
@@ -171,7 +172,7 @@ def test_unported_features_raise(kw, solve_kw):
 def test_resume_state_raises():
     from totsu_tpu_torch.solver.conic import solve_jit
     c, a, b, m = small_lp(seed=5)
-    ct, at, bt = interop.problem_from_numpy(c, a, b)
+    ct, at, bt = interop.problem_from_numpy(c, a, b, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         solve_jit(ct, at, bt, tt.ConeLayout([tt.rpos(m)]),
                   tt.SolverParam(max_iter=10), resume_state=object())

@@ -8,19 +8,23 @@ homogeneous self-dual embedding of a conic LP
 
 iterated with the diagonally preconditioned Pock-Chambolle method on a
 dense ``A``, over products of zero / nonnegative / second-order /
-rotated-second-order cones. Plain tensor code is PyTorch; the two kernels
-of the path are CUDA C++ for ``sm_90a`` (``csrc/``):
+rotated-second-order / exponential / power cones, with the LP, QP and GP
+reductions. Plain tensor code is PyTorch; the kernels of the path are CUDA
+C++ for ``sm_90a`` (``csrc/``):
 
   * ``dual_matvec`` — the fused {A u, A^T v} pair of every update and check;
+  * ``cone_proj``   — the blocked exp / pow cone projection of the host loop;
   * ``megakernel``  — the whole pdhg solve in one launch (``kernel='mega'``).
 
-Tensors carry their device: a solve runs where its data lies. On a CPU
-tensor each kernel wrapper runs its plain PyTorch version instead.
+Tensors carry their device: a solve runs where its data lies. Data that
+is not a tensor yet (numpy, lists) goes to the CUDA card unless the caller
+passes ``device=``; without a card that raises. On a CPU tensor each
+kernel wrapper runs its plain PyTorch version instead.
 
 Not ported yet (ROADMAP.md): the direct engine, ``accel='restart'``,
 resume / checkpoints, the fast profile, structured operators, the PSD /
-exp / pow / custom projections, the QCQP / SOCP / SDP / GP reductions,
-polish, diff, batching and distribution.
+custom projections, the QCQP / SOCP / SDP reductions, polish, diff,
+batching and distribution.
 """
 
 from totsu_tpu_torch.solver.params import SolverParam, SolverStatus, SolverError

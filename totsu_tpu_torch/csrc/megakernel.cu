@@ -1,8 +1,9 @@
 // Whole-solve pdhg megakernel: the entire iteration loop in one launch.
 //
 // Replaces the Pallas kernel totsu_tpu/ops/pallas/megakernel.py
-// (solve_mega, body built by _build_kernel) for the zero, R+, SOC and RSOC
-// cones with accel '' or 'halpern', optional relax, check_at_start and the
+// (solve_mega, body built by _build_kernel) for the zero, R+, SOC, RSOC,
+// exponential and power cones with accel '' or 'halpern', optional relax,
+// check_at_start and the
 // sb/sc unscaling of the criteria. Same algorithm as the host loop of
 // totsu_tpu_torch/solver/conic.py; sums run in another order, so results
 // agree to f32 reduction-order roundoff.
@@ -34,10 +35,23 @@
 //    (start, dim, rotated) and a warp per block that reduces the block's
 //    tail norm. RSOC blocks go through the same involutive Givens map on
 //    their first two slots; length-1 RSOC blocks are R+ elements.
+//  * The TPU kernel evaluates the exp and pow cores lane-wise over the
+//    whole m-row, every lane as if it were a block head, and keeps the
+//    head lanes (slot masks, two lane-rolls). Here a table of 3-blocks
+//    (start, kind, alpha) gives each block one thread, which runs the
+//    fixed-trip core of cone_exppow.cuh (the arithmetic of the blocked
+//    projection kernel cone_proj.cu) and forms the dual by the Moreau
+//    identity in registers. The loop is a template on whether the problem
+//    has such blocks: the core adds live values and spills to the loop
+//    (PERF.md), so only exp/pow problems run the instantiation that holds
+//    it, and the zero/R+/SOC/RSOC problems keep the loop without it. The
+//    core sits behind a call that is not inlined.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "cone_exppow.cuh"
 
 // Arguments of totsu_mega_solve, filled by ops/kernels/megakernel.py
 // (_MegaArgs mirrors this layout; totsu_mega_struct_size checks it). At
@@ -61,9 +75,13 @@ struct MegaArgs {
   const float* us0;
   const float* vn0;
   const float* vm0;
-  // cone metadata: per-element kind (m,), blocks (nb, 3) = start, dim, rot
+  // cone metadata: per-element kind (m,), SOC/RSOC blocks (nb, 3) =
+  // start, dim, rot; exp/pow 3-blocks (nt, 2) = start, kind (0 exp, 1
+  // pow) and their power exponents (nt,)
   const int* kind;
   const int* blocks;
+  const int* tri;
+  const float* tri_alpha;
   // outputs
   float* ux;
   float* uy;
@@ -73,7 +91,7 @@ struct MegaArgs {
   float* scal_out;  // ut, v1, cri_pri, cri_dual, cri_gap, cri_unbdd, cri_infeas
   int* int_out;     // k, status
   float* scratch;   // workspace floats when they do not fit shared memory
-  int m, n, nb;
+  int m, n, nb, nt;
   int max_iter, check_period, halpern, check_at_start;
   float dptt, dpst, norm_b, norm_c, ut0, v10, sb, sc;
   float eps_acc, eps_inf, eps_zero, relax;
@@ -90,7 +108,9 @@ constexpr size_t kSmemBudget = 96 * 1024;
 
 constexpr int kRunning = 0, kConverged = 1, kExcess = 2, kUnbounded = 3,
               kInfeasible = 4;
-constexpr int kKindZero = 0, kKindRpos = 1;  // else an SOC/RSOC block
+// per-element kinds projected elementwise; the others (2: SOC/RSOC, 3:
+// exp, 4: pow) are projected block by block
+constexpr int kKindZero = 0, kKindRpos = 1;
 constexpr float kInvSqrt2 = 0.70710678118654752440f;
 
 // one iterate (u, v): vectors plus the scalars (ut, v1) in shared memory
@@ -186,7 +206,26 @@ __device__ void cols_pass(const float* __restrict__ a, const float* y,
   __syncthreads();
 }
 
-// In-place projection of an m-vector onto K (dual = false) or K*.
+// Exp and pow 3-blocks of x onto their cones (or duals): a thread per
+// block.
+__device__ __noinline__ void project_tri(float* x, bool dual, const int* tri,
+                                         const float* tri_alpha, int nt) {
+  for (int bi = threadIdx.x; bi < nt; bi += kThreads) {
+    float* xb = x + tri[2 * bi];
+    float v0 = xb[0], v1 = xb[1], v2 = xb[2];
+    totsu_cone::proj_block<float>(v0, v1, v2, tri[2 * bi + 1],
+                                  tri_alpha[bi], dual);
+    xb[0] = v0;
+    xb[1] = v1;
+    xb[2] = v2;
+  }
+}
+
+// In-place projection of an m-vector onto K (dual = false) or K*. The
+// element kinds, the SOC blocks and the 3-blocks are disjoint, so their
+// loops need no barrier between them; the caller's __syncthreads() ends
+// them all. kTri: the cone has exp/pow 3-blocks.
+template <bool kTri>
 __device__ void project(float* x, bool dual, const MegaArgs& g) {
   for (int i = threadIdx.x; i < g.m; i += kThreads) {
     const int k = g.kind[i];
@@ -242,9 +281,11 @@ __device__ void project(float* x, bool dual, const MegaArgs& g) {
       }
     }
   }
+  if constexpr (kTri) project_tri(x, dual, g.tri, g.tri_alpha, g.nt);
 }
 
 // One Pock-Chambolle step t = T(z) (SolverCore::update_vecs).
+template <bool kTri>
 __device__ void update(const Vecs& z, const Vecs& t, const Work& w,
                        const MegaArgs& g, const Shared& sh) {
   const int m = g.m, n = g.n, tid = threadIdx.x;
@@ -267,8 +308,8 @@ __device__ void update(const Vecs& z, const Vecs& t, const Work& w,
     t.s[i] = z.s[i] - g.dpts[i] * (-z.vm[i]);
   }
   __syncthreads();
-  project(t.y, true, g);
-  project(t.s, false, g);
+  project<kTri>(t.y, true, g);
+  project<kTri>(t.s, false, g);
   __syncthreads();
   for (int i = tid; i < m; i += kThreads) w.rm[i] = z.y[i] - 2.f * t.y[i];
   __syncthreads();
@@ -384,6 +425,7 @@ __device__ __forceinline__ float* carve(float*& p, int len) {
   return r;
 }
 
+template <bool kTri>
 __global__ void __launch_bounds__(kThreads, 1)
 mega_kernel(MegaArgs g, int use_smem) {
   extern __shared__ float dyn[];
@@ -427,7 +469,7 @@ mega_kernel(MegaArgs g, int use_smem) {
     float fp_rst = INFINITY, fp_last = INFINITY;
     while (status == kRunning && k < g.max_iter) {
       for (int s = 0; s < g.check_period; ++s) {
-        update(z, t, w, g, sh);
+        update<kTri>(z, t, w, g, sh);
         const float wt = (static_cast<float>(ke) + 1.f) /
                          (static_cast<float>(ke) + 2.f);
         const float wa = 1.f - wt;
@@ -448,7 +490,7 @@ mega_kernel(MegaArgs g, int use_smem) {
         ++ke;
       }
       k += g.check_period;
-      update(z, t, w, g, sh);
+      update<kTri>(z, t, w, g, sh);
       float fp2[1] = {0.f};
       for (int j = tid; j < n; j += kThreads) {
         const float dx = t.x[j] - z.x[j], dv = t.vn[j] - z.vn[j];
@@ -484,7 +526,7 @@ mega_kernel(MegaArgs g, int use_smem) {
   } else {
     while (status == kRunning && k < g.max_iter) {
       for (int s = 0; s < g.check_period; ++s) {
-        update(z, t, w, g, sh);
+        update<kTri>(z, t, w, g, sh);
         const Vecs tmp = z;
         z = t;
         t = tmp;
@@ -533,12 +575,14 @@ int totsu_mega_solve(const MegaArgs* args, void* stream) {
   if (!use_smem && args->scratch == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t dyn = use_smem ? bytes : 0;
+  void (*kernel)(MegaArgs, int) =
+      args->nt > 0 ? mega_kernel<true> : mega_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      mega_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(dyn));
   if (err != cudaSuccess) return static_cast<int>(err);
-  mega_kernel<<<1, kThreads, dyn, static_cast<cudaStream_t>(stream)>>>(
-      *args, use_smem);
+  kernel<<<1, kThreads, dyn, static_cast<cudaStream_t>(stream)>>>(*args,
+                                                                  use_smem);
   return static_cast<int>(cudaGetLastError());
 }
 

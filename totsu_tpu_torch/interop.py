@@ -3,7 +3,8 @@
 The JAX package's ``SolverParam``, ``Factor`` and ``ConeLayout`` are plain
 frozen dataclasses, so their fields are read here without importing
 ``jax``: the caller hands the objects in. Problem data is handed over as
-numpy arrays, which both packages accept.
+numpy arrays, which both packages accept; in the port it goes to the CUDA
+card unless the caller names another device.
 """
 
 import dataclasses
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from totsu_tpu_torch.solver.cone import CUSTOM, ConeLayout, Factor
+from totsu_tpu_torch.solver.operator import target_device
 from totsu_tpu_torch.solver.params import SolverParam
 
 
@@ -41,8 +43,10 @@ def cone_from_reference(layout) -> ConeLayout:
     return ConeLayout(factors)
 
 
-def problem_from_numpy(c, a, b, *, device="cpu", dtype=torch.float64):
-    """(c, A, b) as contiguous tensors of ``dtype`` on ``device``."""
+def problem_from_numpy(c, a, b, *, device=None, dtype=torch.float64):
+    """(c, A, b) as contiguous tensors of ``dtype`` on ``device`` (default
+    the CUDA card; raises without one)."""
+    dev = target_device(device)
     return tuple(torch.as_tensor(np.asarray(x), dtype=dtype,
-                                 device=device).contiguous()
+                                 device=dev).contiguous()
                  for x in (c, a, b))

@@ -2,8 +2,8 @@
 plain version.
 
 Port of ``totsu_tpu/ops/pallas/megakernel.py`` (``solve_mega``,
-``supported``, ``fits``) for the zero, R+, SOC and RSOC cones with accel
-'' or 'halpern'. :func:`solve_mega` takes the host loop's post-setup state
+``supported``, ``fits``) for the zero, R+, SOC, RSOC, exponential and
+power cones with accel '' or 'halpern'. :func:`solve_mega` takes the host loop's post-setup state
 (iterated and exact data, preconditioners, seed) and returns its
 ``(u, v, k, status, crits)`` contract. On a CUDA tensor it runs the whole
 loop in one kernel launch or raises; on a CPU tensor it runs
@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from totsu_tpu_torch.ops.kernels import _build
-from totsu_tpu_torch.solver.cone import ConeLayout, ZERO, RPOS, SOC, RSOC
+from totsu_tpu_torch.solver.cone import (ConeLayout, ZERO, RPOS, SOC, RSOC,
+                                         EXP, POW)
 
 #: kernel launches since the last reset (CUDA only)
 launches = 0
@@ -29,28 +30,32 @@ launches = 0
 #: measured on the H100.
 A_BUDGET_BYTES = 24 * 1024 * 1024
 
-_KIND_ZERO, _KIND_RPOS, _KIND_BLOCK = 0, 1, 2
+_KIND_ZERO, _KIND_RPOS, _KIND_BLOCK, _KIND_EXP, _KIND_POW = 0, 1, 2, 3, 4
+#: kind column of the 3-block table (cone_exppow.cuh proj_block)
+_TRI_KIND = {EXP: 0, POW: 1}
 
 
 def supported(cone: ConeLayout) -> bool:
-    """True when every cone factor has an in-kernel projection. The exp
-    and pow branches of the TPU kernel are not ported yet (ROADMAP §2)."""
-    return all(f.kind in (ZERO, RPOS, SOC, RSOC) for f in cone.factors)
+    """True when every cone factor has an in-kernel projection."""
+    return all(f.kind in (ZERO, RPOS, SOC, RSOC, EXP, POW)
+               for f in cone.factors)
 
 
 def fits(m: int, n: int, cone: ConeLayout) -> bool:
     """True when A (f32) fits the kernel's L2 budget (the cone adds only
-    an m-int kind table and a 3-int row per block)."""
+    an m-int kind table and a row of a few ints per block)."""
     del cone
     return 4 * m * n <= A_BUDGET_BYTES
 
 
 @functools.lru_cache(maxsize=64)
 def cone_tables(cone: ConeLayout):
-    """Per-element kind (m,) and SOC/RSOC block table (nb, 3) = (start,
-    dim, rotated) for the kernel; length-1 RSOC blocks are R+ elements."""
+    """The kernel's cone tables: per-element kind (m,); SOC/RSOC blocks
+    (nb, 3) = (start, dim, rotated), length-1 RSOC blocks being R+
+    elements; exp/pow 3-blocks (nt, 2) = (start, 0 for exp or 1 for pow)
+    and their power exponents (nt,) f32 (0 for exp)."""
     kind = np.empty(cone.dim, np.int32)
-    blocks = []
+    blocks, tri, tri_alpha = [], [], []
     off = 0
     for f in cone.factors:
         if f.kind == ZERO:
@@ -61,13 +66,19 @@ def cone_tables(cone: ConeLayout):
             kind[off:off + f.total] = _KIND_BLOCK
             rot = int(f.kind == RSOC)
             blocks += [(off + i * f.dim, f.dim, rot) for i in range(f.count)]
+        elif f.kind in (EXP, POW):
+            kind[off:off + f.total] = _KIND_EXP if f.kind == EXP else _KIND_POW
+            tri += [(off + 3 * i, _TRI_KIND[f.kind]) for i in range(f.count)]
+            tri_alpha += [f.alpha] * f.count
         else:
             raise ValueError(f"megakernel: unsupported cone kind {f.kind!r}")
         off += f.total
     blocks = np.asarray(blocks, np.int32).reshape(-1, 3)
-    for table in (kind, blocks):  # cached: shared by every caller
+    tri = np.asarray(tri, np.int32).reshape(-1, 2)
+    tri_alpha = np.asarray(tri_alpha, np.float32)
+    for table in (kind, blocks, tri, tri_alpha):  # cached: shared
         table.setflags(write=False)
-    return kind, blocks
+    return kind, blocks, tri, tri_alpha
 
 
 class _MegaArgs(ctypes.Structure):
@@ -75,10 +86,10 @@ class _MegaArgs(ctypes.Structure):
         [(name, ctypes.c_void_p) for name in (
             "a", "c_it", "b_it", "c_ex", "b_ex", "dptx", "dpty", "dpts",
             "dpsx", "dpsy", "ux0", "uy0", "us0", "vn0", "vm0", "kind",
-            "blocks", "ux", "uy", "us", "vn", "vm", "scal_out", "int_out",
-            "scratch")]
+            "blocks", "tri", "tri_alpha", "ux", "uy", "us", "vn", "vm",
+            "scal_out", "int_out", "scratch")]
         + [(name, ctypes.c_int) for name in (
-            "m", "n", "nb", "max_iter", "check_period", "halpern",
+            "m", "n", "nb", "nt", "max_iter", "check_period", "halpern",
             "check_at_start")]
         + [(name, ctypes.c_float) for name in (
             "dptt", "dpst", "norm_b", "norm_c", "ut0", "v10", "sb", "sc",
@@ -171,9 +182,8 @@ def solve_mega_cuda(a, c_it, b_it, c_ex, b_ex, dp_tau, dp_sigma, u0, v0,
         torch.linalg.vector_norm(c_ex), u0[3], v0[2],
         one if sb is None else sb.to(torch.float32),
         one if sc is None else sc.to(torch.float32)]).tolist()
-    kind_np, blocks_np = cone_tables(cone)
-    kind = torch.tensor(kind_np, device=dev)
-    blocks = torch.tensor(blocks_np, device=dev)
+    tables = [torch.tensor(t, device=dev) for t in cone_tables(cone)]
+    kind, blocks, tri, tri_alpha = tables
 
     lib = _lib()
     out = {name: torch.empty(length, dtype=torch.float32, device=dev)
@@ -190,10 +200,12 @@ def solve_mega_cuda(a, c_it, b_it, c_ex, b_ex, dp_tau, dp_sigma, u0, v0,
         dpsy=dp_sigma[1].data_ptr(), ux0=u0[0].data_ptr(),
         uy0=u0[1].data_ptr(), us0=u0[2].data_ptr(), vn0=v0[0].data_ptr(),
         vm0=v0[1].data_ptr(), kind=kind.data_ptr(),
-        blocks=blocks.data_ptr(),
+        blocks=blocks.data_ptr(), tri=tri.data_ptr(),
+        tri_alpha=tri_alpha.data_ptr(),
         **{name: t.data_ptr() for name, t in out.items()},
         int_out=int_out.data_ptr(), scratch=scratch.data_ptr(),
-        m=m, n=n, nb=blocks_np.shape[0], max_iter=int(max_iter),
+        m=m, n=n, nb=blocks.shape[0], nt=tri.shape[0],
+        max_iter=int(max_iter),
         check_period=int(check_period), halpern=int(accel == "halpern"),
         check_at_start=int(bool(check_at_start)),
         dptt=scal[0], dpst=scal[1], norm_b=scal[2], norm_c=scal[3],

@@ -7,7 +7,7 @@ import torch
 
 from totsu_tpu_torch.solver.cone import ConeLayout
 from totsu_tpu_torch.solver.conic import solve, solve_jit, SolveResult
-from totsu_tpu_torch.solver.operator import LinOp
+from totsu_tpu_torch.solver.operator import LinOp, target_device
 from totsu_tpu_torch.solver.params import SolverParam
 
 
@@ -41,21 +41,32 @@ class ConicProblem:
                          warm_start=warm_start)
 
 
-def _as_tensor(v) -> torch.Tensor:
-    """Tensors pass through; anything else goes through numpy, so Python
-    floats become f64 and numpy arrays keep their dtype (on the CPU)."""
+def _device_of(device, *inputs) -> torch.device:
+    """Where a builder puts its inputs that are not tensors: ``device``
+    when the caller names one, else the device of the first tensor among
+    ``inputs``, else the CUDA card (:func:`target_device`)."""
+    if device is None:
+        for x in inputs:
+            if isinstance(x, torch.Tensor):
+                return x.device
+    return target_device(device)
+
+
+def _as_tensor(v, device) -> torch.Tensor:
+    """Tensors pass through; anything else goes through numpy (Python
+    floats become f64, numpy arrays keep their dtype) to ``device``."""
     if isinstance(v, torch.Tensor):
         return v
-    return torch.from_numpy(np.array(v))
+    return torch.from_numpy(np.array(v)).to(device)
 
 
-def _asvec(v, rows=None, like=None):
+def _asvec(v, device, rows=None, like=None):
     """Coerce to a 1-D tensor; None -> zeros(rows) with ``like``'s dtype
     and device."""
     if v is None:
         v = torch.zeros(0 if rows is None else rows, dtype=like.dtype,
                         device=like.device)
-    v = _as_tensor(v)
+    v = _as_tensor(v, device)
     if v.dim() == 2 and v.shape[1] == 1:
         v = v[:, 0]
     if v.dim() != 1:
@@ -63,22 +74,23 @@ def _asvec(v, rows=None, like=None):
     return v
 
 
-def _asmat(a, rows, cols, like):
+def _asmat(a, device, rows, cols, like):
     """Coerce to a 2-D tensor; None -> zeros((rows, cols)) with ``like``'s
     dtype and device."""
     if a is None:
         a = torch.zeros(rows, cols, dtype=like.dtype, device=like.device)
-    a = _as_tensor(a)
+    a = _as_tensor(a, device)
     if a.dim() != 2:
         raise ValueError(f"expected matrix, got shape {tuple(a.shape)}")
     return a
 
 
 def _from_matbuild(x):
-    """Accept MatBuild / arrays / None uniformly."""
+    """Accept MatBuild / arrays / None uniformly (a MatBuild is host data:
+    its numpy array)."""
     from totsu_tpu_torch.problems.matbuild import MatBuild
     if isinstance(x, MatBuild):
-        return x.to_array()
+        return x.to_dense()
     return x
 
 

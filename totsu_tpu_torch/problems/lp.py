@@ -12,22 +12,25 @@ Reduction (ref: totsu/src/problem/lp.rs:222-258 doc + 260-338):
 import torch
 
 from totsu_tpu_torch.problems.base import (
-    ConicProblem, _asvec, _asmat, _common, _from_matbuild,
+    ConicProblem, _asvec, _asmat, _common, _device_of, _from_matbuild,
 )
 from totsu_tpu_torch.solver import cone as cones
 from totsu_tpu_torch.solver.operator import DenseOp
 
 
-def lp(c, g=None, h=None, a=None, b=None) -> ConicProblem:
+def lp(c, g=None, h=None, a=None, b=None, *, device=None) -> ConicProblem:
     """LP reduction. ``g``/``h`` inequality, ``a``/``b`` equality
-    constraints; any of them may be None/empty. Missing blocks take the
-    dtype and device of ``c``."""
-    c = _asvec(c)
+    constraints; any of them may be None/empty. Tensors keep their
+    device; other inputs go to ``device``, else to the device of the
+    tensors given, else to the CUDA card. Missing blocks take the dtype
+    and device of ``c``."""
+    dev = _device_of(device, c, g, h, a, b)
+    c = _asvec(c, dev)
     n = c.shape[0]
-    g = _asmat(g, 0, n, c)
-    h = _asvec(h, g.shape[0], c)
-    a = _asmat(a, 0, n, c)
-    b = _asvec(b, a.shape[0], c)
+    g = _asmat(g, dev, 0, n, c)
+    h = _asvec(h, dev, g.shape[0], c)
+    a = _asmat(a, dev, 0, n, c)
+    b = _asvec(b, dev, a.shape[0], c)
     m = g.shape[0]
     p = a.shape[0]
 
@@ -42,13 +45,15 @@ class ProbLP:
     """Reference-style LP wrapper (ref ProbLP, lp.rs:260-338).
 
     Accepts MatBuild or arrays; ``problem()`` yields the ConicProblem.
+    ``device`` as in :func:`lp`.
     """
 
-    def __init__(self, vec_c, mat_g=None, vec_h=None, mat_a=None, vec_b=None):
+    def __init__(self, vec_c, mat_g=None, vec_h=None, mat_a=None, vec_b=None,
+                 *, device=None):
         self._prob = lp(
             _from_matbuild(vec_c),
             _from_matbuild(mat_g), _from_matbuild(vec_h),
-            _from_matbuild(mat_a), _from_matbuild(vec_b),
+            _from_matbuild(mat_a), _from_matbuild(vec_b), device=device,
         )
 
     def problem(self) -> ConicProblem:

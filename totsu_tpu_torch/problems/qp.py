@@ -21,22 +21,27 @@ import torch
 
 from totsu_tpu_torch.ops import sympack
 from totsu_tpu_torch.problems.base import (
-    ConicProblem, _as_tensor, _asvec, _asmat, _common, _from_matbuild,
+    ConicProblem, _as_tensor, _asvec, _asmat, _common, _device_of,
+    _from_matbuild,
 )
 from totsu_tpu_torch.solver import cone as cones
 from totsu_tpu_torch.solver.operator import DenseOp
 
 
-def qp(p_mat, q, g=None, h=None, a=None, b=None) -> ConicProblem:
+def qp(p_mat, q, g=None, h=None, a=None, b=None, *,
+       device=None) -> ConicProblem:
     """QP reduction. ``p_mat`` is the dense symmetric PSD objective matrix
-    (n, n). Missing blocks take the dtype and device of ``q``."""
-    q = _asvec(q)
+    (n, n). Tensors keep their device; other inputs go to ``device``,
+    else to the device of the tensors given, else to the CUDA card.
+    Missing blocks take the dtype and device of ``q``."""
+    dev = _device_of(device, p_mat, q, g, h, a, b)
+    q = _asvec(q, dev)
     n = q.shape[0]
-    p_mat = _as_tensor(p_mat)
-    g = _asmat(g, 0, n, q)
-    h = _asvec(h, g.shape[0], q)
-    a = _asmat(a, 0, n, q)
-    b = _asvec(b, a.shape[0], q)
+    p_mat = _as_tensor(p_mat, dev)
+    g = _asmat(g, dev, 0, n, q)
+    h = _asvec(h, dev, g.shape[0], q)
+    a = _asmat(a, dev, 0, n, q)
+    b = _asvec(b, dev, a.shape[0], q)
     m = g.shape[0]
     p = a.shape[0]
 
@@ -68,17 +73,19 @@ class ProbQP:
 
     ``sym_p`` may be a SymPack MatBuild or a dense symmetric array.
     The solution's first n entries are x (the last is the epigraph t).
+    ``device`` as in :func:`qp`.
     """
 
     def __init__(self, sym_p, vec_q, mat_g=None, vec_h=None,
-                 mat_a=None, vec_b=None, eps_zero: float = 1e-12):
+                 mat_a=None, vec_b=None, eps_zero: float = 1e-12, *,
+                 device=None):
         del eps_zero  # retained for API parity; eigh needs no tolerance here
         self._prob = qp(
             _from_matbuild(sym_p), _from_matbuild(vec_q),
             _from_matbuild(mat_g), _from_matbuild(vec_h),
-            _from_matbuild(mat_a), _from_matbuild(vec_b),
+            _from_matbuild(mat_a), _from_matbuild(vec_b), device=device,
         )
-        self.n = _asvec(_from_matbuild(vec_q)).shape[0]
+        self.n = self._prob.shape[1] - 1  # the epigraph t is the last
 
     def problem(self) -> ConicProblem:
         return self._prob

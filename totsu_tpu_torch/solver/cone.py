@@ -10,11 +10,19 @@ zero      {0}^n; primal -> 0, dual -> identity
 rpos      R+^n; elementwise max(x, 0); self-dual
 soc       {(s, v) : ||v|| <= s}; 3-case projection; self-dual
 rsoc      {x3^2+... <= 2 x1 x2, x1,x2 >= 0}; Givens-rotate into soc
+exp       {(r, s, t) : s e^{r/s} <= t, s > 0} closure; Newton-bisection root
+pow       {(x, y, z) : x^a y^(1-a) >= |z|, x, y >= 0}; Newton-bisection root
 ========  =====================================================================
 
-``psd``, ``expc``, ``powc`` and ``custom`` factors can be built (so layouts
-carry across from the JAX package), but projecting them raises
-``NotImplementedError``: they are ROADMAP §1 item 11.
+The exp and pow cones are not self-dual: their dual projections use the
+Moreau identity proj_{K*}(x) = x + proj_K(-x). For CPU tensors their
+blocks go through the plain PyTorch cores below; for CUDA tensors through
+the blocked projection kernel (``ops/kernels/cone_proj.py``), which runs
+the same arithmetic one block per thread.
+
+``psd`` and ``custom`` factors can be built (so layouts carry across from
+the JAX package), but projecting them raises ``NotImplementedError``:
+they are ROADMAP §1 item 11.
 """
 
 import dataclasses
@@ -145,6 +153,259 @@ def _proj_rsoc_blocks(xb: torch.Tensor) -> torch.Tensor:
     return rot(_proj_soc_blocks(rot(xb)))
 
 
+#: Trip counts of the fixed-trip root finders, as in the JAX package: the
+#: exp bracket expansion, the exp Newton-bisection hybrid and the pow
+#: hybrid (by dtype: f32, f64). The pow counts keep the full bisection
+#: guarantee (at the |z0| endpoint an r-error of eps becomes a y-error of
+#: about sqrt(eps)).
+EXP_EXPAND_TRIPS = 40
+EXP_TRIPS = {torch.float32: 26, torch.float64: 38}
+POW_TRIPS = {torch.float32: 28, torch.float64: 54}
+
+
+def _fixed_trips(step, state, trips: int):
+    """``trips`` applications of ``step`` to the tuple ``state``, stopping
+    as soon as a trip leaves every tensor of the state unchanged: the trip
+    is a function of the state alone, so the result is that of all
+    ``trips`` trips, bit for bit, with fewer eager launches."""
+    for _ in range(trips):
+        nxt = step(state)
+        if all(torch.equal(a, b) for a, b in zip(nxt, state)):
+            break
+        state = nxt
+    return state
+
+
+def _on_roots(root, outs, solve, *args):
+    """Write ``solve(*args[root])`` into the tensors ``outs`` at the
+    elements where ``root`` holds: the root finders run only on the
+    blocks that need them (the CUDA kernel's thread per block does the
+    same), so the other blocks' discarded arithmetic neither costs eager
+    launches nor keeps the fixed-trip loops from their fixed point."""
+    idx = root.nonzero()[:, 0]
+    if idx.numel():
+        sub = [x[idx] if isinstance(x, torch.Tensor) and x.dim() else x
+               for x in args]
+        for out, val in zip(outs, solve(*sub)):
+            out[idx] = val
+    return outs
+
+
+def _exp_root(r0, s0, t0):
+    """The exp projection of blocks outside K, its polar and the negative
+    quadrant (see :func:`_proj_exp_rst`)."""
+    safe_s = torch.where(s0 != 0, s0, 1.0)
+    safe_r = torch.where(r0 != 0, r0, 1.0)
+
+    def hval(rho, grad: bool):
+        # h rescaled by e^{-|rho|} (rho^2 - rho + 1) > 0: only the branch
+        # that rho's sign selects, from e^{-|rho|} and e^{-2|rho|}
+        num1 = (rho - 1.0) * r0 + s0          # coefficient of e^{rho}
+        num2 = r0 - rho * s0                  # coefficient of e^{-rho}
+        den = rho * (rho - 1.0) + 1.0         # > 0 for all rho
+        e1 = torch.exp(-rho.abs())
+        e2 = torch.exp(-2.0 * rho.abs())
+        take_pos = rho >= 0
+        v = torch.where(take_pos, num1 - num2 * e2, num1 * e2 - num2) \
+            - t0 * den * e1
+        if not grad:
+            return v
+        denp = 2.0 * rho - 1.0
+        g = torch.where(take_pos, r0 + (s0 + 2.0 * num2) * e2,
+                        (r0 + 2.0 * num1) * e2 + s0) \
+            - t0 * torch.where(take_pos, denp - den, denp + den) * e1
+        return v, g
+
+    # bracket from the validity constraints s(rho) > 0, lambda(rho) > 0:
+    #   r0 > 0 -> rho > 1 - s0/r0        r0 < 0 -> rho < 1 - s0/r0
+    #   s0 < 0 -> rho > r0/s0            s0 > 0 -> rho < r0/s0
+    inf = float("inf")
+    lo = torch.maximum(torch.where(r0 > 0, 1.0 - s0 / safe_r, -inf),
+                       torch.where(s0 < 0, r0 / safe_s, -inf))
+    hi = torch.minimum(torch.where(r0 < 0, 1.0 - s0 / safe_r, inf),
+                       torch.where(s0 > 0, r0 / safe_s, inf))
+    lo_inf, hi_inf = torch.isinf(lo), torch.isinf(hi)
+
+    def expand(state):
+        # double the (at most one) infinite end until h changes sign
+        lo_f, hi_f = state
+        hi_f = torch.where(hi_inf & (hval(hi_f, False) < 0),
+                           lo_f + 2.0 * (hi_f - lo_f), hi_f)
+        lo_f = torch.where(lo_inf & (hval(lo_f, False) > 0),
+                           hi_f + 2.0 * (lo_f - hi_f), lo_f)
+        return lo_f, hi_f
+
+    lo_f, hi_f = _fixed_trips(
+        expand, (torch.where(torch.isfinite(lo), lo, hi - 1.0),
+                 torch.where(torch.isfinite(hi), hi, lo + 1.0)),
+        EXP_EXPAND_TRIPS)
+
+    def hybrid(state):
+        # rtsafe-style: the sign at r shrinks the bracket like bisection;
+        # the next point is the Newton step when it lands strictly inside
+        # the bracket, or rounds to r itself (converged to the last ULP:
+        # without this the iterate would be thrown back to the midpoint of
+        # a stale one-sided bracket), else the midpoint
+        lo_f, hi_f, r = state
+        v, g = hval(r, True)
+        neg = v < 0                           # h increasing: root above r
+        lo_f = torch.where(neg, r, lo_f)
+        hi_f = torch.where(neg, hi_f, r)
+        nxt = r - v / torch.where(g != 0, g, 1.0)
+        ok = torch.isfinite(nxt) & (g != 0) & \
+            (((nxt > lo_f) & (nxt < hi_f)) | (nxt == r))
+        return lo_f, hi_f, torch.where(ok, nxt, 0.5 * (lo_f + hi_f))
+
+    _, _, rho = _fixed_trips(hybrid, (lo_f, hi_f, 0.5 * (lo_f + hi_f)),
+                             EXP_TRIPS[r0.dtype])
+    den = rho * (rho - 1.0) + 1.0
+    s = torch.clamp(((rho - 1.0) * r0 + s0) / den, min=0.0)
+    # t: the boundary form s e^rho is ill-conditioned for rho >> 0, the
+    # KKT form t0 + lambda(rho) for rho << 0; take the damped one
+    t_kkt = t0 + (r0 - rho * s0) * torch.exp(-torch.clamp(rho, min=0.0)) \
+        / den
+    t = torch.clamp(torch.where(rho >= 0, t_kkt, s * torch.exp(rho)),
+                    min=0.0)
+    return rho * s, s, t
+
+
+def _proj_exp_rst(r0, s0, t0):
+    """Elementwise exponential-cone projection: same-shaped 1-D tensors
+    (r0, s0, t0), each element an independent block, to the projected
+    (r, s, t). Port of ``totsu_tpu.solver.cone._proj_exp_rst`` (Friberg,
+    Optim. Letters 2023): the non-trivial case is the root of the
+    increasing scalar function
+
+        h(rho) = [((rho-1) r0 + s0) e^rho - (r0 - rho s0) e^{-rho}]
+                 / (rho^2 - rho + 1)  -  t0,
+
+    found by bracket expansion and a safeguarded Newton-bisection hybrid
+    on h rescaled by e^{-|rho|}(rho^2 - rho + 1) > 0, so that every term
+    stays bounded while the expansion pushes rho to +-2^40.
+
+    Trivial cases, in order of precedence: v0 in K -> v0; v0 in the polar
+    -> 0; r0 <= 0 and s0 <= 0 -> (r0, 0, max(t0, 0)).
+    """
+    e = torch.tensor(torch.e, dtype=r0.dtype, device=r0.device)
+    safe_s = torch.where(s0 != 0, s0, 1.0)
+    safe_r = torch.where(r0 != 0, r0, 1.0)
+    in_cone = ((s0 > 0) & (s0 * torch.exp(r0 / safe_s) <= t0)) | \
+        ((s0 == 0) & (r0 <= 0) & (t0 >= 0))
+    in_polar = ((r0 > 0) & (r0 * torch.exp(s0 / safe_r) <= -e * t0)) | \
+        ((r0 == 0) & (s0 <= 0) & (t0 <= 0))
+    neg_quad = (r0 <= 0) & (s0 <= 0)
+    zero = torch.zeros_like(r0)
+    out_r = torch.where(in_cone | (neg_quad & ~in_polar), r0, zero)
+    out_s = torch.where(in_cone, s0, zero)
+    out_t = torch.where(in_cone, t0, torch.where(
+        in_polar, zero, torch.clamp(t0, min=0.0)))
+    return _on_roots(~(in_cone | in_polar | neg_quad), (out_r, out_s, out_t),
+                     _exp_root, r0, s0, t0)
+
+
+def _proj_exp_blocks(xb: torch.Tensor) -> torch.Tensor:
+    """Batched exp-cone projection over (count, 3) blocks."""
+    return torch.stack(_proj_exp_rst(xb[:, 0], xb[:, 1], xb[:, 2]), dim=1)
+
+
+def _pow_root(x0, y0, az, a):
+    """r = |z| of the pow projection of pre-scaled blocks outside K, its
+    polar and z = 0, and the projected (x(r), y(r)) (see
+    :func:`_proj_pow_rst`)."""
+    b = 1.0 - a
+    tiny = _TINY[x0.dtype]
+
+    def half_quad(w0, coef, q):
+        """(w0 + sqrt(w0^2 + 4 c q)) / 2 and the square root; for w0 < 0
+        the conjugate 2cq / (sqrt - w0), which does not cancel."""
+        s = torch.sqrt(w0 * w0 + 4.0 * coef * q)
+        return torch.where(w0 >= 0, 0.5 * (w0 + s),
+                           2.0 * coef * q / torch.clamp(s - w0, min=tiny)), s
+
+    def step(state):
+        # phi = a log x(r) + (1-a) log y(r) - log r, decreasing in r, and
+        # its derivative a^2 q'/(x sx) + (1-a)^2 q'/(y sy) - 1/r
+        lo, hi, r = state
+        q = r * (az - r)
+        qp = az - 2.0 * r
+        xr, sx = half_quad(x0, a, q)
+        yr, sy = half_quad(y0, b, q)
+        v = (a * torch.log(torch.clamp(xr, min=tiny))
+             + b * torch.log(torch.clamp(yr, min=tiny))
+             - torch.log(torch.clamp(r, min=tiny)))
+        g = (a * a * qp / torch.clamp(xr * sx, min=tiny)
+             + b * b * qp / torch.clamp(yr * sy, min=tiny)
+             - 1.0 / torch.clamp(r, min=tiny))
+        pos = v > 0                           # phi decreasing: root above
+        lo = torch.where(pos, r, lo)
+        hi = torch.where(pos, hi, r)
+        nxt = r - v / torch.where(g != 0, g, 1.0)
+        ok = torch.isfinite(nxt) & (g != 0) & \
+            (((nxt > lo) & (nxt < hi)) | (nxt == r))
+        return lo, hi, torch.where(ok, nxt, 0.5 * (lo + hi))
+
+    _, _, r = _fixed_trips(step, (torch.zeros_like(az), az, 0.5 * az),
+                           POW_TRIPS[x0.dtype])
+    q = r * (az - r)
+    return half_quad(x0, a, q)[0], half_quad(y0, b, q)[0], r
+
+
+_TINY = {torch.float32: 1e-38, torch.float64: 1e-300}
+
+
+def _proj_pow_rst(x0, y0, z0, alpha):
+    """Elementwise power-cone projection: same-shaped 1-D tensors (x0,
+    y0, z0), each element an independent block; ``alpha`` is a float or a
+    tensor of the same shape (per-block exponents). Port of
+    ``totsu_tpu.solver.cone._proj_pow_rst`` (Hien 2015, prop. 2.2): the
+    non-trivial case projects onto the boundary x^a y^(1-a) = |z|, a
+    scalar root problem on r = |z_proj| in (0, |z0|):
+
+        x(r) = (x0 + sqrt(x0^2 + 4 a r (|z0| - r))) / 2
+        y(r) = (y0 + sqrt(y0^2 + 4 (1-a) r (|z0| - r))) / 2
+        Phi(r) = x(r)^a y(r)^(1-a) - r = 0,
+
+    solved by a safeguarded Newton-bisection hybrid with the sign test in
+    the log domain. Blocks are pre-scaled by their max-abs (projections
+    onto cones are positively homogeneous), so no input overflows.
+
+    Trivial cases, in order of precedence: v0 in K -> v0; v0 in the polar
+    -K* -> 0; z0 = 0 -> (max(x0, 0), max(y0, 0), 0).
+    """
+    a = alpha
+    tiny = _TINY[x0.dtype]
+    scl = torch.maximum(torch.maximum(x0.abs(), y0.abs()),
+                        torch.clamp(z0.abs(), min=1e-30))
+    x0, y0, z0 = x0 / scl, y0 / scl, z0 / scl
+    az = z0.abs()
+
+    def pow_val(x, y):
+        """x^a y^(1-a) for x, y >= 0 (0 when either is 0)."""
+        v = torch.exp(a * torch.log(torch.clamp(x, min=tiny))
+                      + (1.0 - a) * torch.log(torch.clamp(y, min=tiny)))
+        return torch.where((x > 0) & (y > 0), v, 0.0)
+
+    in_cone = (x0 >= 0) & (y0 >= 0) & (pow_val(x0, y0) >= az)
+    in_polar = (x0 <= 0) & (y0 <= 0) & \
+        (pow_val(-x0 / a, -y0 / (1.0 - a)) >= az)
+    z_zero = az == 0
+    zero = torch.zeros_like(x0)
+    out_x = torch.where(in_cone, x0, torch.where(
+        in_polar, zero, torch.clamp(x0, min=0.0)))
+    out_y = torch.where(in_cone, y0, torch.where(
+        in_polar, zero, torch.clamp(y0, min=0.0)))
+    out_r = torch.where(in_cone, az, zero)
+    _on_roots(~(in_cone | in_polar | z_zero), (out_x, out_y, out_r),
+              _pow_root, x0, y0, az, a)
+    return out_x * scl, out_y * scl, torch.sign(z0) * out_r * scl
+
+
+def _proj_pow_blocks(xb: torch.Tensor, alpha) -> torch.Tensor:
+    """Batched power-cone projection over (count, 3) blocks."""
+    return torch.stack(_proj_pow_rst(xb[:, 0], xb[:, 1], xb[:, 2], alpha),
+                       dim=1)
+
+
 def _project_factor(f: Factor, seg: torch.Tensor, dual: bool) -> torch.Tensor:
     if f.total == 0:
         return seg
@@ -157,7 +418,12 @@ def _project_factor(f: Factor, seg: torch.Tensor, dual: bool) -> torch.Tensor:
         out = _proj_soc_blocks(blocks)
     elif f.kind == RSOC:
         out = _proj_rsoc_blocks(blocks)
-    elif f.kind in (PSD, EXP, POW, CUSTOM):
+    elif f.kind in (EXP, POW):
+        # the blocked kernel for CUDA tensors, the cores above for CPU
+        # tensors; duals by the Moreau identity
+        from totsu_tpu_torch.ops.kernels import cone_proj
+        out = cone_proj.cone_proj(blocks, f.kind, f.alpha, dual)
+    elif f.kind in (PSD, CUSTOM):
         raise NotImplementedError(
             f"projection onto the {f.kind!r} cone is not ported yet "
             "(ROADMAP §1 item 11: remaining cones)")

@@ -309,7 +309,11 @@ def _check_supported(param: SolverParam, resume_state, row_sharding):
 
 
 def _as_tensor(x, device) -> torch.Tensor:
-    t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x))
+    """Tensors keep their device (which must be A's); other data goes to
+    A's device."""
+    if not isinstance(x, torch.Tensor):
+        return torch.from_numpy(np.array(x)).to(device)
+    t = x
     if t.device != device:
         raise ValueError(f"c, A and b must share a device: got {t.device} "
                          f"and {device}")
@@ -325,15 +329,20 @@ def solve_jit(
     warm_start: Optional[Tuple[Any, Any]] = None,
     resume_state=None,
     row_sharding=None,
+    *,
+    device=None,
 ) -> SolveResult:
     """Conic solve that never raises on non-convergence; returns a status.
 
     Equivalent of Solver::solve + SolverCore::solve (solver.rs:285-457).
-    ``c`` (n,), ``a`` (m, n) tensor or :class:`LinOp`, ``b`` (m,), all on
-    one device; ``warm_start`` an optional (x0, y0) primal/dual seed.
+    ``c`` (n,), ``a`` (m, n) tensor or :class:`LinOp`, ``b`` (m,);
+    ``warm_start`` an optional (x0, y0) primal/dual seed. The solve runs
+    on A's device: an A that is not a tensor goes to ``device``, else to
+    the CUDA card (a tensor A on another device than ``device`` raises),
+    and a ``c`` or ``b`` that is not a tensor follows A.
     """
     _check_supported(param, resume_state, row_sharding)
-    a_op = as_linop(a)
+    a_op = as_linop(a, device)
     if not isinstance(a_op, DenseOp):
         raise _not_ported("structured operators", "10")
     device = a_op.a.device
@@ -485,16 +494,18 @@ def _mega_choice(param: SolverParam, a_op: LinOp, cone: ConeLayout,
             raise ValueError(
                 "kernel='mega' requires a dense f32 A inside the kernel's "
                 f"envelope ({mk.A_BUDGET_BYTES >> 20} MiB), zero/R+/SOC/"
-                "RSOC cones, accel in ('', 'halpern'), no matvec_dtype")
+                "RSOC/exp/pow cones, accel in ('', 'halpern'), no "
+                "matvec_dtype")
         return True
     return ok and a_op.a.device.type == "cuda"
 
 
 def solve_sequence(problems, param: SolverParam = SolverParam(),
-                   warm_start=None):
+                   warm_start=None, *, device=None):
     """Solve a sequence of same-shaped problems, warm-starting each from
     the previous solution. ``problems`` yields (c, a, b, cone) tuples or
-    ConicProblems; returns the list of SolveResults."""
+    ConicProblems; returns the list of SolveResults. ``device`` as in
+    :func:`solve_jit`."""
     results = []
     ws = warm_start
     for prob in problems:
@@ -502,7 +513,7 @@ def solve_sequence(problems, param: SolverParam = SolverParam(),
             c, a, b, cone = prob.c, prob.a, prob.b, prob.cone
         else:
             c, a, b, cone = prob
-        res = solve(c, a, b, cone, param, warm_start=ws)
+        res = solve(c, a, b, cone, param, warm_start=ws, device=device)
         results.append(res)
         ws = (res.x, res.y)
     return results
@@ -518,16 +529,19 @@ def solve(
     row_sharding=None,
     polish: bool = False,
     chunk_iters: Optional[int] = None,
+    *,
+    device=None,
 ) -> SolveResult:
     """Host-facing solve: raises :class:`SolverError` on non-convergence
     like the reference's ``Result`` (solver.rs:285-322). Use
-    :func:`solve_jit` for the never-raising version."""
+    :func:`solve_jit` for the never-raising version; ``device`` as
+    there."""
     if polish:
         raise _not_ported("polish=True", "13")
     if chunk_iters is not None:
         raise _not_ported("chunk_iters", "9")
     result = solve_jit(c, a, b, cone, param, warm_start=warm_start,
-                       row_sharding=row_sharding)
+                       row_sharding=row_sharding, device=device)
     if result.status != SolverStatus.CONVERGED:
         raise SolverError(result.status)
     return result

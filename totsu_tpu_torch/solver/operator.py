@@ -17,6 +17,20 @@ import torch
 from totsu_tpu_torch.ops.kernels.dual_matvec import dual_matvec
 
 
+def target_device(device=None) -> torch.device:
+    """Where data that is not a tensor yet goes: ``device`` when the
+    caller names one, else the CUDA card. The port runs on the card unless
+    asked for the CPU, so without a CUDA device this raises; it never
+    falls back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: data that is not a tensor goes to the card "
+            "unless device= names another one (e.g. device='cpu')")
+    return torch.device("cuda")
+
+
 def as_dtype(dtype) -> torch.dtype:
     """A torch dtype from a torch dtype or its name (e.g. 'bfloat16')."""
     if isinstance(dtype, torch.dtype):
@@ -127,13 +141,20 @@ class DenseOp(LinOp):
         return self.a
 
 
-def as_linop(a) -> LinOp:
-    """Coerce a tensor / array / LinOp to a LinOp (numpy data keeps its
-    dtype and lands on the CPU)."""
+def as_linop(a, device=None) -> LinOp:
+    """Coerce a tensor / array / LinOp to a LinOp. Tensors keep their
+    device, which must be ``device`` when the caller names one; other data
+    keeps its numpy dtype and goes to :func:`target_device` (``device``,
+    else the CUDA card)."""
     if isinstance(a, LinOp):
         return a
     if not isinstance(a, torch.Tensor):
-        a = torch.from_numpy(np.array(a))
+        a = torch.from_numpy(np.array(a)).to(target_device(device))
+    elif device is not None:
+        want = torch.device(device)
+        if a.device.type != want.type or want.index not in (None,
+                                                            a.device.index):
+            raise ValueError(f"A is on {a.device}, not on device={want}")
     if a.dim() != 2:
         raise ValueError(f"expected 2-D array or LinOp, got shape "
                          f"{tuple(a.shape)}")
