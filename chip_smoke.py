@@ -74,21 +74,53 @@ def loop_ms(fn, calls=200, warmup=10):
     return start.elapsed_time(end) / calls
 
 
-def device_ms(fn, calls=50):
+def device_ms(fn, calls=20, windows=5):
     """Device milliseconds per call of ``fn()``: the kernel time the
     profiler attributes to the calls (host time between kernels
-    excluded); None when the profiler reports no device time."""
+    excluded), the median over ``windows`` profiled windows of ``calls``
+    calls. A window can lose kernel records (it then reads a third to all
+    of the time too low on identical work), so each kernel counts at its
+    mean time per record times its records per call, rounded up; None
+    when no window reports device time."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    per_call = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        # kernel rows only: an operator's own row repeats its kernels' time
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.count > 0 and e.self_device_time_total > 0]
+        if rows:
+            per_call.append(sum(e.self_device_time_total / e.count
+                                * -(-e.count // calls) for e in rows) / 1e3)
+    return statistics.median(per_call) if per_call else None
+
+
+def stream_ms(fn, calls=50):
+    """Device milliseconds per call of ``fn()`` back to back, by CUDA
+    events: the calls are queued behind a kernel that sleeps until the
+    host has queued them all, so host time stays out and the gaps between
+    the calls' kernels count. None if the host could not get ahead."""
+    fn()
+    torch.cuda.synchronize()
+    for cycles in (4_000_000, 16_000_000, 64_000_000):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize()
-    # kernel events only: an operator's own row repeats its kernels' time
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    return total_us / 1e3 / calls if total_us > 0 else None
+        end.record()
+        late = start.query()  # the sleep ended before the host was done
+        end.synchronize()
+        if not late:
+            return start.elapsed_time(end) / calls
+    return None
 
 
 def make_lp(n, seed=0):
@@ -417,6 +449,51 @@ def bound_ms(nbytes, ops, dtype=torch.float32):
                                        else "operations")
 
 
+def _median(*xs):
+    xs = [x for x in xs if x is not None]
+    return statistics.median(xs) if xs else None
+
+
+def dm_times(dm, a, u, v):
+    """dual_matvec on one f32 input, timed in turns (library, kernel,
+    kernel, library, plain): device ms per call of the kernel, its plain
+    version and the library call (two torch.mv, cuBLAS GEMV), by the
+    profiler and by events (``stream_ms``); and the byte bound: A read
+    once, u and v read, p and q written."""
+    def kern():
+        return dm.dual_matvec_cuda(a, u, v)
+
+    def plain():
+        return dm.dual_matvec_plain(a, u, v)
+
+    def lib():
+        return torch.mv(a, u), torch.mv(a.t(), v)
+
+    out = {}
+    for how, timer in (("device", device_ms), ("events", stream_ms)):
+        l1, k1, k2, l2, p1 = (timer(f) for f in (lib, kern, kern, lib, plain))
+        out[how] = (_median(k1, k2), p1, _median(l1, l2))
+    m, n = a.shape
+    out["bound"] = bound_ms(a.element_size() * m * n
+                            + u.element_size() * 2 * (m + n), 4 * m * n)
+    return out
+
+
+def fmt_dm_times(what, t):
+    """One line of ``dm_times``: times in us, the kernel's share of the
+    byte bound, and whether it beat the library call."""
+    def us(x):
+        return "n/a" if x is None else f"{1e3 * x:.2f}"
+    k, p, lib = t["device"]
+    share = "n/a" if k is None else f"{100 * t['bound'][0] / k:.1f}%"
+    verdict = ("n/a" if k is None or lib is None
+               else "kernel <= library" if k <= lib else "kernel > library")
+    return (f"{what}: device us kernel/plain/two torch.mv {us(k)}/{us(p)}/"
+            f"{us(lib)} (events {'/'.join(us(x) for x in t['events'])}); "
+            f"bound {us(t['bound'][0])} us ({t['bound'][1]}), kernel at "
+            f"{share} of it; {verdict}")
+
+
 def profile_loop(fn, iters):
     """Run ``fn()`` (``iters`` pdhg iterations) under torch.profiler:
     (wall us, device-busy us, kernel launches) per iteration, from the
@@ -479,23 +556,33 @@ def main():
              torch.float64: 1e-12}
     dm_err = {}
     rng = np.random.default_rng(0)
-    for (m, n) in [(4000, 1000), (400, 100), (173, 77), (8, 128)]:
+    # the main path's first shape, three small ones, and the kernel's edge
+    # cases: n not a multiple of the 16-byte vector (rows start unaligned,
+    # one element per load), m below one row group's 8 rows, m = 1, n = 1;
+    # each A also at a base one element past a 16-byte boundary
+    dm_shapes = [(4000, 1000), (400, 100), (173, 77), (8, 128), (300, 1001),
+                 (500, 3042), (5, 1001), (1, 1000), (1000, 1), (1, 1)]
+    for (m, n) in dm_shapes:
         a64 = torch.from_numpy(rng.normal(size=(m, n))).to(dev)
         u64 = torch.from_numpy(rng.normal(size=n)).to(dev)
         v64 = torch.from_numpy(rng.normal(size=m)).to(dev)
         for dt, rtol in rtols.items():
             acc = dm.acc_dtype(dt)
-            a = a64.to(dt).contiguous()
             u, v = u64.to(acc), v64.to(acc)
-            p, q = dm.dual_matvec_cuda(a, u, v)
-            pp, qp = dm.dual_matvec_plain(a, u, v)
-            torch.cuda.synchronize()
-            err = max(float((p - pp).abs().max()), float((q - qp).abs().max()))
-            scale = max(float(pp.abs().max()), float(qp.abs().max()))
-            check(err <= rtol * scale,
-                  f"dual_matvec {dt} ({m}, {n}): max err {err:.3e} > "
-                  f"{rtol:g} * {scale:.3e}")
-            dm_err[(m, n, str(dt))] = err
+            for off in (0, 1):
+                a = torch.empty(m * n + off, dtype=dt, device=dev)[off:]
+                a = a.view(m, n).copy_(a64)
+                p, q = dm.dual_matvec_cuda(a, u, v)
+                pp, qp = dm.dual_matvec_plain(a, u, v)
+                torch.cuda.synchronize()
+                err = max(float((p - pp).abs().max()),
+                          float((q - qp).abs().max()))
+                scale = max(float(pp.abs().max()), float(qp.abs().max()))
+                check(err <= rtol * scale,
+                      f"dual_matvec {dt} ({m}, {n}) offset {off}: max err "
+                      f"{err:.3e} > {rtol:g} * {scale:.3e}")
+                key = (m, n, str(dt))
+                dm_err[key] = max(err, dm_err.get(key, 0.0))
     a = torch.from_numpy(rng.normal(size=(4000, 1000))).to(dev, torch.float32)
     u = torch.from_numpy(rng.normal(size=1000)).to(dev, torch.float32)
     v = torch.from_numpy(rng.normal(size=4000)).to(dev, torch.float32)
@@ -520,10 +607,14 @@ def main():
     dm_bound = bound_ms(4 * 4000 * 1000 + 4 * 2 * (4000 + 1000),
                         4 * 4000 * 1000)
 
+    dm_rand = dm_times(dm, a, u, v)
+
     def fmt(x):
         return "n/a" if x is None else f"{x:.4f}"
-    print("phase 2 dual_matvec vs plain: ok at (4000,1000) (400,100) "
-          "(173,77) (8,128) x f32/bf16/f64; max err at (4000,1000) "
+    print("phase 2 dual_matvec vs plain: ok at "
+          + " ".join(f"({m},{n})" for m, n in dm_shapes)
+          + " x f32/bf16/f64 x aligned/unaligned base; max err at "
+          "(4000,1000) "
           + ", ".join(f"{k.split('.')[-1]} {dm_err[(4000, 1000, k)]:.3e}"
                       for k in times)
           + "; ms per call kernel/plain at (4000,1000) [device ms "
@@ -533,6 +624,8 @@ def main():
                       for k, t in times.items())
           + f"; two torch.mv {dm_library_ms:.4f} ms; bound f32 "
           f"{dm_bound[0]:.4f} ms ({dm_bound[1]})", flush=True)
+    print("  " + fmt_dm_times("dual_matvec, phase 2's random A 4000x1000 "
+                              "f32", dm_rand), flush=True)
 
     # ---- phase 2b: the blocked exp/pow projection against its plain
     # version: 2000 exp and 2000 pow blocks (500 at each alpha), primal
@@ -877,10 +970,13 @@ def main():
 
     # dual_matvec on the last inputs each host-loop path gave it (the
     # n=1000 LP's A 4000 x 1000 and the logistic regression's 7040 x 3040,
-    # both f32 after Ruiz scaling), at phase 2's f32 tolerance
+    # both f32 after Ruiz scaling), at phase 2's f32 tolerance; a second
+    # call is bitwise equal (the cross-CTA sums run in a fixed order);
+    # timed against its plain version and two torch.mv
     dm_main = {}
     for shape, (a_r, u_r, v_r) in sorted(dm_recorded.items()):
         p, q = dm.dual_matvec_cuda(a_r, u_r, v_r)
+        p2, q2 = dm.dual_matvec_cuda(a_r, u_r, v_r)
         pp, qp = dm.dual_matvec_plain(a_r, u_r, v_r)
         err = max(float((p - pp).abs().max()), float((q - qp).abs().max()))
         scale = max(float(pp.abs().max()), float(qp.abs().max()))
@@ -888,16 +984,21 @@ def main():
         check(err <= rtol * scale,
               f"dual_matvec on the main path's {shape} inputs: max err "
               f"{err:.3e} > {rtol:g} * {scale:.3e}")
-        dm_main[shape] = (err, device_ms(
-            lambda: dm.dual_matvec_cuda(a_r, u_r, v_r)), device_ms(
-            lambda: dm.dual_matvec_plain(a_r, u_r, v_r)))
+        check(torch.equal(p, p2) and torch.equal(q, q2),
+              f"dual_matvec on the main path's {shape} inputs: a second "
+              "call differs")
+        dm_main[shape] = (err, dm_times(dm, a_r, u_r, v_r))
     check(tuple(a4.shape) in dm_main, "the logistic regression's "
           "dual_matvec inputs were not recorded")
-    print("dual_matvec on the main path's inputs: " + "; ".join(
-        f"A {m_}x{n_} {dm_recorded[(m_, n_)][0].dtype}: max abs err "
-        f"{r[0]:.3e} (bound {rtols[dm_recorded[(m_, n_)][0].dtype]:g} of "
-        f"the largest output), device ms kernel/plain {fmt(r[1])}/"
-        f"{fmt(r[2])}" for (m_, n_), r in dm_main.items()), flush=True)
+    print("dual_matvec on the main path's inputs (repeat bitwise equal): "
+          + "; ".join(
+              f"A {m_}x{n_} {dm_recorded[(m_, n_)][0].dtype}: max abs err "
+              f"{r[0]:.3e} (bound "
+              f"{rtols[dm_recorded[(m_, n_)][0].dtype]:g} of the largest "
+              "output)" for (m_, n_), r in dm_main.items()), flush=True)
+    for (m_, n_), r in dm_main.items():
+        print("  " + fmt_dm_times(f"dual_matvec, recorded A {m_}x{n_}", r[1]),
+              flush=True)
 
     # cone_proj on the last inputs the logistic regression's host loop
     # gave it (2000 f32 exp blocks, primal and dual)
@@ -949,7 +1050,9 @@ def main():
          "ms": times[str(torch.float32)][0],
          "plain_ms": times[str(torch.float32)][1],
          "bound_ms": dm_bound[0], "bound_by": dm_bound[1],
-         "library_ms": dm_library_ms},
+         "library_ms": dm_library_ms,
+         "device_ms": dm_rand["device"][0],
+         "library_device_ms": dm_rand["device"][2]},
         {"name": "megakernel", "route": "cuda",
          "source": "totsu_tpu_torch/csrc/megakernel.cu",
          "replaces": "totsu_tpu/ops/pallas/megakernel.py:184",

@@ -9,8 +9,9 @@ run it for each tree in turn (parent, change, change, parent). Solves each
 problem once through ``solve(kernel='mega')``, records the megakernel's
 inputs, then times ``solve_mega_cuda`` on them: the median wall
 milliseconds of ``N`` calls, each ended by a device synchronize (``ms``),
-and the kernel time ``torch.profiler`` attributes to ``N`` calls, per call
-(``device_ms``; the wrapper's host work excluded). Prints one JSON line
+and the kernel time ``torch.profiler`` attributes to a call, the median
+over five windows of ``N`` calls (``device_ms``; the wrapper's host work
+excluded). Prints one JSON line
 with the card's name and power limit. Needs a CUDA device.
 """
 

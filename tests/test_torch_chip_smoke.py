@@ -147,3 +147,90 @@ def test_mega_timing_refuses_without_cuda():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True)
     assert out.returncode != 0 and "no CUDA device" in out.stderr
+
+
+def test_dm_timing_refuses_without_cuda():
+    script = os.path.join(cs.ROOT, "dm_timing.py")
+    code = ("import sys, runpy, torch; torch.cuda.is_available = "
+            f"lambda: False; sys.argv = [{script!r}, '--cut']; "
+            f"runpy.run_path({script!r}, run_name='__main__')")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+
+
+def test_dm_timing_cut_point_is_in_the_kernel():
+    # --cut stops the kernel after the partials' stores; the statement it
+    # cuts at must stay in the source, once
+    import runpy
+    from totsu_tpu_torch.ops.kernels import _build
+    script = runpy.run_path(os.path.join(cs.ROOT, "dm_timing.py"))
+    src = (_build.CSRC / "dual_matvec.cu").read_text()
+    assert src.count(script["CUT_AT"]) == 1
+
+
+def test_device_ms_survives_lost_records(monkeypatch):
+    # each kernel at its mean per record times its records per call
+    # (rounded up), so a window that lost records reads as a whole one;
+    # CPU rows and empty windows do not count; the median of the windows
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+    windows = iter([
+        [(cuda, 50, 440.0), (cuda, 100, 300.0), (cpu, 50, 900.0)],
+        [(cuda, 33, 290.4), (cuda, 60, 180.0)],  # records lost
+        [],
+        [(cuda, 50, 450.0), (cuda, 100, 310.0)],
+        [(cuda, 50, 430.0), (cuda, 100, 290.0)],
+    ])
+
+    class Row:
+        def __init__(self, kind, count, us):
+            self.device_type, self.count = kind, count
+            self.self_device_time_total = us
+
+    class Prof:
+        def __init__(self, activities):
+            self.rows = [Row(*r) for r in next(windows)]
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return self.rows
+
+    monkeypatch.setattr(torch.profiler, "profile", Prof)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    # per call: 14.8, 14.8, none, 15.2, 14.4 us
+    assert cs.device_ms(lambda: None, calls=50) == pytest.approx(0.0148)
+
+
+def test_dm_times_orders_and_formats(monkeypatch):
+    # the three versions in turns (library, kernel, kernel, library,
+    # plain) under both timers; the kernel's share of the byte bound
+    from totsu_tpu_torch.ops.kernels import dual_matvec as dm
+    calls = []
+
+    class Fake:
+        dual_matvec_plain = staticmethod(dm.dual_matvec_plain)
+
+        @staticmethod
+        def dual_matvec_cuda(a, u, v):
+            calls.append("kernel")
+            return dm.dual_matvec_plain(a, u, v)
+
+    readings = iter([0.014, 0.008, 0.010, 0.016, 0.02,
+                     0.017, 0.009, 0.011, 0.018, 0.03])
+    monkeypatch.setattr(cs, "device_ms", lambda f: (f(), next(readings))[1])
+    monkeypatch.setattr(cs, "stream_ms", lambda f: (f(), next(readings))[1])
+    a, u, v = torch.randn(400, 100), torch.randn(100), torch.randn(400)
+    t = cs.dm_times(Fake, a, u, v)
+    assert len(calls) == 4  # two kernel readings under each timer
+    assert t["device"] == pytest.approx((0.009, 0.02, 0.015))
+    assert t["events"] == pytest.approx((0.01, 0.03, 0.0175))
+    bytes_ = 4 * 400 * 100 + 4 * 2 * 500
+    assert t["bound"] == cs.bound_ms(bytes_, 4 * 400 * 100)
+    line = cs.fmt_dm_times("x", t)
+    assert "9.00/20.00/15.00" in line and "kernel <= library" in line
+    assert f"{100 * t['bound'][0] / 0.009:.1f}%" in line
