@@ -6,9 +6,10 @@ Builds the three CUDA kernels of the port from ``totsu_tpu_torch/csrc``
 (nvcc, sm_90a, all at once), holds each against its plain PyTorch version
 on the card, drives the solver's main paths at full width (the n=1000
 benchmark LP, A 4000 x 1000 f32, and the exp-cone logistic regression,
-A 7040 x 3040 f32, on the host loop; the n=100 LP, a QP, a GP and a
-pow/exp growth portfolio on the megakernel), and checks the answers
-against HiGHS, L-BFGS-B and SLSQP. Each phase prints one line of its own
+A 7040 x 3040 f32, on the host loop; the n=100 LP, a QP, a GP, a
+pow/exp growth portfolio and the n=1000 LP on the megakernel, each with
+its launch plan), and checks the answers against HiGHS, L-BFGS-B and
+SLSQP. Each phase prints one line of its own
 numbers; any failed check raises, so the script exits non-zero and prints
 no final line. It needs a CUDA device and the repository beside it; it imports
 nothing of JAX.
@@ -761,6 +762,8 @@ def main():
         "GP n=100, megakernel": lambda: gprob.solve(p_tight_mega),
         "growth portfolio S=64 n=50, megakernel":
             lambda: tt.solve(c6t, a6t, b6t, gr_cone, p_tight_mega),
+        "LP n=1000, megakernel":
+            lambda: tt.solve(c1t, a1t, b1t, lp_cone, p_mega),
     }
     mk.solve_mega = recording_solve_mega
     cp.cone_proj_cuda = recording_cone_proj
@@ -794,10 +797,24 @@ def main():
     r_gp_m, wall_gp_m, cnt_gp_m = runs["GP n=100, megakernel"]
     r_gr_m, wall_gr_m, cnt_gr_m = runs[
         "growth portfolio S=64 n=50, megakernel"]
+    r_full_m, wall_full_m, cnt_full_m = runs["LP n=1000, megakernel"]
     for what, cnt in (("LP n=100", cnt_lp_m), ("QP n=50", cnt_qp_m),
-                      ("GP", cnt_gp_m), ("growth portfolio", cnt_gr_m)):
+                      ("GP", cnt_gp_m), ("growth portfolio", cnt_gr_m),
+                      ("LP n=1000", cnt_full_m)):
         check(cnt["megakernel"] == 1,
               f"{what}: {cnt['megakernel']} megakernel launches per solve")
+    # the launch plan of every megakernel solve (cached: the plan the
+    # solve ran)
+    mega_names = ["LP n=100", "QP n=50", "GP n=100", "growth portfolio",
+                  "LP n=1000"]
+    check(len(recorded) == len(mega_names),
+          f"{len(recorded)} megakernel solves recorded")
+    plans = {}
+    for what, (args, _) in zip(mega_names, recorded):
+        m_, n_ = args[0].shape
+        plans[what] = mk.device_plan(m_, n_, args[9], dev)[0]
+        print(f"  megakernel plan, {what} (A {m_}x{n_}): "
+              f"{plans[what].describe()}", flush=True)
 
     # ---- phase 4: full-width LP checks
     from scipy.optimize import linprog
@@ -827,6 +844,39 @@ def main():
           f"{dm_full} dual_matvec launches; objective {obj:.6f} vs HiGHS "
           f"{hi.fun:.6f} (rel {rel:.2e}, HiGHS {highs_s:.2f} s); repeat "
           "solve: same iterations, bitwise-equal x", flush=True)
+
+    # ---- phase 4b: the same LP through kernel='mega' (A 16 MB, sliced
+    # over the SMs' shared memory): objective within 5e-3 of phase 4's
+    # HiGHS value. x: at eps_acc 1e-3 both f32 solves sit about 3.6e-2
+    # (max-norm, relative) from HiGHS's optimal vertex, and the two stop
+    # on different iterations (the sums run in other orders), so they
+    # agree to a few 1e-3, not to 1e-3 (2.5e-3 measured on an H100): x
+    # within 1e-2 relative of phase 4's host-loop x, and no more than
+    # 1.25 times as far from HiGHS's x as the host loop's
+    check(r_full_m.converged, f"n=1000 LP megakernel status "
+          f"{r_full_m.status}")
+    xm = r_full_m.x.double().cpu()
+    xl = r_full.x.double().cpu()
+    full_rel_x = float((xm - xl).abs().max() / xl.abs().max().clamp(min=1.0))
+    check(full_rel_x <= 1e-2, f"n=1000 LP megakernel: x differs from the "
+          f"host loop by {full_rel_x:.3e} relative")
+    xh = torch.from_numpy(np.asarray(hi.x, np.float64))
+    scale_h = float(xh.abs().max().clamp(min=1.0))
+    dist_m = float((xm - xh).abs().max()) / scale_h
+    dist_l = float((xl - xh).abs().max()) / scale_h
+    check(dist_m <= 1.25 * dist_l, f"n=1000 LP megakernel: x {dist_m:.3e} "
+          f"from HiGHS's, the host loop's {dist_l:.3e}")
+    obj_m = float(np.dot(c1.astype(np.float64), xm.numpy()))
+    rel_m = abs(obj_m - hi.fun) / max(1.0, abs(hi.fun))
+    check(rel_m <= 5e-3, f"n=1000 LP megakernel objective {obj_m} vs HiGHS "
+          f"{hi.fun} (rel {rel_m:.3e})")
+    print(f"phase 4b n=1000 LP megakernel ({plans['LP n=1000'].describe()}):"
+          f" CONVERGED in {r_full_m.iters} iterations, {wall_full_m:.3f} s "
+          f"({1e3 * wall_full_m / r_full_m.iters:.4f} ms per iteration, host "
+          f"loop {1e3 * wall_full / r_full.iters:.4f}); x rel diff to the "
+          f"host loop {full_rel_x:.2e}; x from HiGHS's {dist_m:.2e} (host "
+          f"loop {dist_l:.2e}); objective {obj_m:.6f} vs HiGHS "
+          f"{hi.fun:.6f} (rel {rel_m:.2e}); 1 launch", flush=True)
 
     def rel_x(rm, rx, k):
         xm, xx = rm.x[:k].double().cpu(), rx.x[:k].double().cpu()
@@ -912,12 +962,22 @@ def main():
     check(gp_rel <= 5e-3, f"GP objective {posy[0]} vs SLSQP {gp_ref} "
           f"(rel {gp_rel:.3e})")
     check(max(posy[1:]) <= 1.01, f"GP constraint at {max(posy[1:]):.4f}")
+    # a repeat of the megakernel solve on the same card: bitwise equal
+    # (fixed sum orders in and across CTAs, no atomics in the sums)
+    r_gp_m2, wall_gp_m2 = timed(lambda: gprob.solve(p_tight_mega))
+    check(r_gp_m2.iters == r_gp_m.iters,
+          f"GP megakernel repeat: {r_gp_m2.iters} iterations, not "
+          f"{r_gp_m.iters}")
+    check(torch.equal(r_gp_m2.x, r_gp_m.x), "GP megakernel repeat: x "
+          "differs")
     print(f"phase 7 GP n=100 (A {gprob.shape[0]}x{gprob.shape[1]} f32, 600 "
           f"exp blocks): megakernel/host loop {r_gp_m.iters}/"
           f"{r_gp_x.iters} iterations, {wall_gp_m:.3f}/{wall_gp_x:.3f} s; "
           f"x rel diff {gp_rel_x:.2e}; objective {posy[0]:.6f} vs SLSQP "
           f"{gp_ref:.6f} (rel {gp_rel:.2e}, {slsqp_s:.2f} s), max f_i "
-          f"{max(posy[1:]):.6f}; 1 launch per mega solve", flush=True)
+          f"{max(posy[1:]):.6f}; 1 launch per mega solve; megakernel "
+          f"repeat ({wall_gp_m2:.3f} s): same iterations, bitwise-equal x",
+          flush=True)
 
     # ---- phase 8: the growth portfolio (S = 64, n = 50: 63 pow(1/2) and
     # 50 exp blocks) on the megakernel against the host loop, and against
@@ -967,6 +1027,31 @@ def main():
         f"{r[5][0]:.4f} ms ({r[5][1]})"
         for what, r in (("n=100 LP inputs", mk_lp), ("GP inputs", mk_gp))),
         flush=True)
+    # the same n=100 LP inputs on layouts the plan does not pick for them:
+    # one and several CTAs, both modes of the cross-CTA sums, the vectors
+    # in scratch (the layout of a wide A); x/tau against the plain
+    # version's at phase 9's tolerance
+    args, kwargs = recorded[0]
+    up = mk.solve_mega_plain(*args, **kwargs)[0]
+    xp = up[0] / up[3]
+    forced = []
+    try:
+        for over in ({"grid": 1}, {"grid": 4, "split": True},
+                     {"grid": 13}, {"grid": 4, "vec_smem": False}):
+            mk.PLAN_OVERRIDES.clear()
+            mk.PLAN_OVERRIDES.update(over)
+            out = mk.solve_mega_cuda(*args, **kwargs)
+            err = float((out[0][0] / out[0][3] - xp).abs().max())
+            check(out[3] == tt.SolverStatus.CONVERGED
+                  and err <= 1e-3 * max(1.0, float(xp.abs().max())),
+                  f"megakernel with plan {over}: status {out[3]}, x/tau "
+                  f"differs from plain by {err:.3e}")
+            forced.append((over, out[2], err))
+    finally:
+        mk.PLAN_OVERRIDES.clear()
+    print("  megakernel on the n=100 LP inputs with forced plans: "
+          + "; ".join(f"{over}: {k_} iterations, max |x err| {e:.3e}"
+                      for over, k_, e in forced), flush=True)
 
     # dual_matvec on the last inputs each host-loop path gave it (the
     # n=1000 LP's A 4000 x 1000 and the logistic regression's 7040 x 3040,
@@ -1059,7 +1144,8 @@ def main():
          "launches": main_counts["megakernel"],
          "max_abs_err": mk_gp[4], "ms": 1e3 * mk_gp[2],
          "plain_ms": 1e3 * mk_gp[3], "bound_ms": mk_gp[5][0],
-         "bound_by": mk_gp[5][1], "library_ms": None},
+         "bound_by": mk_gp[5][1], "library_ms": None,
+         "grid": plans["GP n=100"].grid},
         {"name": "cone_proj", "route": "cuda",
          "source": "totsu_tpu_torch/csrc/cone_proj.cu",
          "replaces": "totsu_tpu/solver/cone.py:368",

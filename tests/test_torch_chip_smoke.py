@@ -234,3 +234,33 @@ def test_dm_times_orders_and_formats(monkeypatch):
     line = cs.fmt_dm_times("x", t)
     assert "9.00/20.00/15.00" in line and "kernel <= library" in line
     assert f"{100 * t['bound'][0] / 0.009:.1f}%" in line
+
+
+def test_mega_phases_marks_are_in_the_kernel():
+    # every timer of mega_phases.py finds its place in the kernel once,
+    # and the copy keeps the kernel's entry points
+    import runpy
+    from totsu_tpu_torch.ops.kernels import _build
+    script = runpy.run_path(os.path.join(cs.ROOT, "mega_phases.py"))
+    src = (_build.CSRC / "megakernel.cu").read_text()
+    out = script["patched"](src)
+    marks = script["MARKS"]
+    assert out.count("PHASE(") == len(marks) + 1  # the macro's definition
+    assert sorted(k for _, k, _ in marks) == list(range(len(marks)))
+    assert "int totsu_mega_solve(" in out and "totsu_phases" in out
+
+
+def test_mega_phases_refuses_without_cuda():
+    script = os.path.join(cs.ROOT, "mega_phases.py")
+    code = ("import sys, runpy, torch; torch.cuda.is_available = "
+            f"lambda: False; sys.argv = [{script!r}]; "
+            f"runpy.run_path({script!r}, run_name='__main__')")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+
+
+def test_mega_timing_sweeps_every_cell():
+    import runpy
+    script = runpy.run_path(os.path.join(cs.ROOT, "mega_timing.py"))
+    assert set(script["SWEEP"]) == set(script["CELLS"])

@@ -3,15 +3,22 @@ plain version.
 
 Port of ``totsu_tpu/ops/pallas/megakernel.py`` (``solve_mega``,
 ``supported``, ``fits``) for the zero, R+, SOC, RSOC, exponential and
-power cones with accel '' or 'halpern'. :func:`solve_mega` takes the host loop's post-setup state
-(iterated and exact data, preconditioners, seed) and returns its
-``(u, v, k, status, crits)`` contract. On a CUDA tensor it runs the whole
-loop in one kernel launch or raises; on a CPU tensor it runs
-:func:`solve_mega_plain`, which is the port's own host loop
+power cones with accel '' or 'halpern'. :func:`solve_mega` takes the host
+loop's post-setup state (iterated and exact data, preconditioners, seed)
+and returns its ``(u, v, k, status, crits)`` contract. On a CUDA tensor it
+runs the whole loop in one cooperative kernel launch or raises; on a CPU
+tensor it runs :func:`solve_mega_plain`, which is the port's own host loop
 (``solver/conic.py``) called with the same inputs.
+
+The launch is planned here, by the pure function :func:`plan`: how many
+CTAs (one per SM), which contiguous rows of A each owns (cut only between
+cone blocks), whether each CTA holds its rows in shared memory, the
+thread layout of the matvec pass and how the cross-CTA sums run. The
+kernel takes the plan as it is.
 """
 
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
@@ -24,11 +31,45 @@ from totsu_tpu_torch.solver.cone import (ConeLayout, ZERO, RPOS, SOC, RSOC,
 #: kernel launches since the last reset (CUDA only)
 launches = 0
 
-#: Envelope of the single-CTA design: one SM streams A from L2 four times
-#: per iteration, so A must stay L2-resident (50 MB on an H100 by NVIDIA's
-#: data sheet); about half of it is budgeted. Derived from the design, not
-#: measured on the H100.
+#: Envelope of the kernel: A (f32) within half of the H100's 50 MB L2 (by
+#: NVIDIA's data sheet), set for the first, single-CTA design, which
+#: streamed A from L2. Cut into slices, such an A also fits the shared
+#: memory of the 132 SMs (232,448 bytes each). Derived from the design,
+#: not measured on the H100.
 A_BUDGET_BYTES = 24 * 1024 * 1024
+
+#: threads per CTA (the kernel's ``kThreads``)
+THREADS = 512
+_WARPS = THREADS // 32
+#: column steps per thread per block of the matvec pass at most (the
+#: kernel's ``kSteps``)
+STEPS = 4
+#: m-side scalars summed over the grid beside q (the kernel's ``kScal``)
+SCALARS = 4
+#: bytes of shared memory kept for the kernel's static arrays
+STATIC_SMEM = 1024
+#: a CTA's vectors go to shared memory up to this size, else to scratch
+VEC_SMEM_BYTES = 96 * 1024
+
+# The plan's cost model, per pdhg update (two matvec passes, two grid
+# sums), in us, fitted to the times of the smoke's five megakernel cells
+# over grid sizes and both sum modes on an NVIDIA H100 80GB HBM3 at 700 W
+# (`mega_timing.py --sweep`; PERF.md). The pass is bound by instructions
+# and latency, about 1.6 us per batch of 8 rows per row set at 4 column
+# steps; a slice read from L2 instead of shared memory costs about a
+# quarter more. A grid sum costs about 1 us (the partials' stores, one
+# barrier, the CTA's syncs) plus about 0.45 us per round of L2 loads of
+# the partials; the split mode's second barrier about 0.7 us.
+BATCH_US = {1: 0.6, 2: 0.9, 4: 1.6}
+STREAM_FACTOR = 1.25
+SUM_US = 1.0
+TRIP_US = 0.45
+BARRIER_US = 0.7
+
+#: keyword arguments every launch passes to :func:`plan` (``split``,
+#: ``grid``, ``vec_smem``), to time or check a layout the plan would not
+#: pick; empty by default
+PLAN_OVERRIDES = {}
 
 _KIND_ZERO, _KIND_RPOS, _KIND_BLOCK, _KIND_EXP, _KIND_POW = 0, 1, 2, 3, 4
 #: kind column of the 3-block table (cone_exppow.cuh proj_block)
@@ -81,16 +122,220 @@ def cone_tables(cone: ConeLayout):
     return kind, blocks, tri, tri_alpha
 
 
+def workspace_floats(n: int, rows: int) -> int:
+    """Floats of one CTA's vectors (the kernel's ``workspace_floats``):
+    eight n-vectors (x and vn of the iterate, its update and the Halpern
+    anchor, two temporaries), eleven of the CTA's rows, the pass's table of
+    per-warp row sums and its per-thread q sums."""
+    return 8 * n + (11 + _WARPS) * rows + THREADS * STEPS
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """A launch of the kernel.
+
+    CTA ``g`` owns rows ``rows(g)`` of A, the SOC/RSOC blocks
+    ``blk_off[g]:blk_off[g + 1]`` and the exp/pow 3-blocks
+    ``tri_off[g]:tri_off[g + 1]`` of the cone tables, and holds its rows
+    of A in shared memory when ``a_smem[g]``. Its matvec pass runs
+    ``THREADS // col_threads`` row sets of ``col_threads`` threads.
+    ``split``: the cross-CTA sums are cut by columns over the CTAs (two
+    grid barriers per sum) instead of summed by every CTA (one barrier).
+    """
+    m: int
+    n: int
+    grid: int
+    row_off: tuple
+    blk_off: tuple
+    tri_off: tuple
+    a_smem: tuple
+    threads: int
+    col_threads: int
+    vec_smem: bool
+    split: bool
+    ws_floats: int
+    a_floats: int     # floats of A per CTA in shared memory (the largest)
+    ld: int           # floats per row of the partials buffer
+    smem_bytes: int   # dynamic shared memory per CTA
+    update_us: float  # the cost model's time per pdhg update
+
+    def rows(self, g: int) -> range:
+        return range(self.row_off[g], self.row_off[g + 1])
+
+    @property
+    def rows_max(self) -> int:
+        return max(b - a for a, b in zip(self.row_off, self.row_off[1:]))
+
+    @property
+    def a_smem_bytes(self) -> int:
+        """Bytes of A held in shared memory over all CTAs."""
+        return 4 * self.n * sum(len(self.rows(g)) for g in range(self.grid)
+                                if self.a_smem[g])
+
+    @property
+    def partials_len(self) -> int:
+        """Floats of the partials buffer: two slots of grid rows, and the
+        split mode's row of sums."""
+        return (2 * self.grid + 1) * self.ld if self.grid > 1 else 0
+
+    def describe(self) -> str:
+        rows = [len(self.rows(g)) for g in range(self.grid)]
+        return (f"G={self.grid}, rows per CTA {min(rows)}-{max(rows)}, A in "
+                f"shared memory {self.a_smem_bytes} of {4 * self.m * self.n}"
+                f" bytes ({sum(self.a_smem)}/{self.grid} CTAs), "
+                f"{self.threads} threads ({self.threads // self.col_threads}"
+                f" row sets of {self.col_threads}), vectors in "
+                f"{'shared memory' if self.vec_smem else 'scratch'}, "
+                f"{'split' if self.split else 'replicated'} sums, "
+                f"{self.smem_bytes} B dynamic shared memory")
+
+
+def _cut_points(m: int, blocks, tri) -> np.ndarray:
+    """Rows where A may be cut: 0..m except inside an SOC/RSOC block or an
+    exp/pow 3-block."""
+    inside = np.zeros(m + 2, np.int64)
+    for start, dim in [(b[0], b[1]) for b in blocks] + [(t[0], 3)
+                                                        for t in tri]:
+        inside[start + 1] += 1
+        inside[start + dim] -= 1
+    return np.flatnonzero(np.cumsum(inside)[:m + 1] == 0)
+
+
+def _cuts(m: int, grid: int, points: np.ndarray) -> tuple:
+    """First rows of ``grid`` slices as even as the cut points allow
+    (each ideal cut snapped to the nearest point; empty slices dropped)."""
+    ideal = (np.arange(1, grid) * m + grid // 2) // grid
+    idx = np.searchsorted(points, ideal)
+    lo = points[np.maximum(idx - 1, 0)]
+    hi = points[np.minimum(idx, len(points) - 1)]
+    snapped = np.where(ideal - lo <= hi - ideal, lo, hi)
+    return tuple(int(x) for x in np.unique(np.concatenate([[0], snapped,
+                                                           [m]])))
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _sum_rounds(length: int, count: int) -> int:
+    """Rounds of L2 loads in the kernel's ``sum_cols`` over ``length``
+    columns of ``count`` partials rows (8 loads in flight per thread)."""
+    width = 1
+    while width < 32 and width * 2 * length <= THREADS and width < count:
+        width *= 2
+    return _ceil(length, THREADS // width) * _ceil(count, 8 * width)
+
+
+def plan(m: int, n: int, tables, sm_count: int, smem_per_block: int,
+         split=None, grid=None, vec_smem=None) -> Plan:
+    """The launch for an (m, n) A with the cone ``tables`` (from
+    :func:`cone_tables`) on a card of ``sm_count`` SMs and
+    ``smem_per_block`` bytes of opt-in shared memory per block.
+
+    Every grid size G from 1 to ``sm_count`` is cut (only between cone
+    blocks) and costed per pdhg update by the model above, fitted on an
+    H100: two matvec passes, each the largest CTA's batches of rows (about
+    1.6 us per batch at 4 column steps), plus two grid sums when G > 1
+    (about 1 us each, 0.45 us per round of L2 loads of the partials: G
+    rows in the replicated mode, a slice of the columns then one row in
+    the split mode, which costs a second barrier, about 0.7 us). The
+    cheapest G wins, the smaller on a tie. So the n=50 QP (A 102 x 51)
+    keeps G = 1, where a grid sum would cost more than the pass it
+    shortens; the n=100 LP (400 x 100) takes G = 4; the GP (2001 x 701)
+    and the n=1000 LP (4000 x 1000) spread over the SMs with split sums.
+    ``split`` None lets the model pick the sums' mode; ``grid`` cuts for
+    that G only (at most ``sm_count``); ``vec_smem`` False puts the
+    vectors in scratch even where they fit shared memory."""
+    if m < 1 or n < 1 or sm_count < 1:
+        raise ValueError(f"megakernel plan: m={m}, n={n}, sm={sm_count}")
+    kind, blocks, tri, _ = tables
+    if len(kind) != m:
+        raise ValueError(f"megakernel plan: cone tables for {len(kind)} "
+                         f"rows, A has {m}")
+    points = _cut_points(m, blocks, tri)
+    # the narrowest row set whose STEPS column steps cover n: more row
+    # sets, fewer rows each in the pass's dependent chain
+    col_threads = 32
+    while col_threads < THREADS and col_threads * STEPS < n:
+        col_threads *= 2
+    sets = THREADS // col_threads
+    steps = min(STEPS, _ceil(n, col_threads))
+    steps = STEPS if steps == 3 else steps  # the kernel's instantiations
+    col_blocks = _ceil(n, col_threads * steps)
+    row_len = n + SCALARS  # floats of a partials row the sums read
+    ld = _ceil(row_len, 4) * 4
+    best, seen = None, set()
+    tries = range(1, min(sm_count, m) + 1)
+    if grid is not None:
+        if not 1 <= grid <= sm_count:
+            raise ValueError(f"megakernel plan: grid {grid} on "
+                             f"{sm_count} SMs")
+        tries = [grid]
+    for g_try in tries:
+        row_off = _cuts(m, g_try, points)
+        if row_off in seen:
+            continue
+        seen.add(row_off)
+        grid = len(row_off) - 1
+        sizes = np.diff(row_off)
+        ws = workspace_floats(n, int(sizes.max()))
+        in_smem = 4 * ws <= VEC_SMEM_BYTES and vec_smem is not False
+        a_cap = (smem_per_block - STATIC_SMEM - (4 * ws if in_smem else 0)
+                 ) // 4
+        a_smem = tuple(bool(r * n <= a_cap) for r in sizes)
+        # batches of 8 rows (the kernel's kBatch) per row set
+        pass_us = max(_ceil(_ceil(int(r), sets), 8) * col_blocks
+                      * BATCH_US[steps] * (1.0 if s else STREAM_FACTOR)
+                      for r, s in zip(sizes, a_smem))
+        modes = {False: 0.0, True: 0.0}
+        if grid > 1:
+            modes = {False: SUM_US + TRIP_US * _sum_rounds(row_len, grid),
+                     True: SUM_US + BARRIER_US + TRIP_US * (
+                         _sum_rounds(_ceil(row_len, grid), grid) + 1)}
+        mode = (min(modes, key=lambda k: (modes[k], k)) if split is None
+                else bool(split) and grid > 1)
+        cost = 2 * (pass_us + modes[mode])
+        if best is not None and cost >= best[0]:
+            continue
+        a_floats = max((r * n for r, s in zip(sizes, a_smem) if s),
+                       default=0)
+        best = (cost, Plan(
+            m=m, n=n, grid=grid, row_off=row_off,
+            blk_off=tuple(int(x) for x in np.searchsorted(
+                blocks[:, 0], row_off)),
+            tri_off=tuple(int(x) for x in np.searchsorted(tri[:, 0],
+                                                          row_off)),
+            a_smem=a_smem, threads=THREADS, col_threads=col_threads,
+            vec_smem=in_smem, split=mode, ws_floats=ws, a_floats=a_floats,
+            ld=ld, smem_bytes=4 * ((ws if in_smem else 0) + a_floats),
+            update_us=cost))
+    return best[1]
+
+
+def local_tables(pl: Plan, tables):
+    """The cone tables as the kernel reads them: each SOC/RSOC block's and
+    3-block's start made relative to the first row of the CTA that owns
+    it."""
+    kind, blocks, tri, tri_alpha = tables
+    blocks, tri = blocks.copy(), tri.copy()
+    for table, off in ((blocks, pl.blk_off), (tri, pl.tri_off)):
+        for g in range(pl.grid):
+            table[off[g]:off[g + 1], 0] -= pl.row_off[g]
+    return kind, blocks, tri, tri_alpha
+
+
 class _MegaArgs(ctypes.Structure):
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
             "a", "c_it", "b_it", "c_ex", "b_ex", "dptx", "dpty", "dpts",
             "dpsx", "dpsy", "ux0", "uy0", "us0", "vn0", "vm0", "kind",
             "blocks", "tri", "tri_alpha", "ux", "uy", "us", "vn", "vm",
-            "scal_out", "int_out", "scratch")]
+            "scal_out", "int_out", "scratch", "row_off", "blk_off",
+            "tri_off", "a_smem", "partials", "barrier")]
         + [(name, ctypes.c_int) for name in (
             "m", "n", "nb", "nt", "max_iter", "check_period", "halpern",
-            "check_at_start")]
+            "check_at_start", "grid", "rows_max", "col_threads", "split",
+            "vec_smem", "a_floats", "ws_floats", "ld")]
         + [(name, ctypes.c_float) for name in (
             "dptt", "dpst", "norm_b", "norm_c", "ut0", "v10", "sb", "sc",
             "eps_acc", "eps_inf", "eps_zero", "relax")])
@@ -105,12 +350,50 @@ def _lib():
         lib.totsu_mega_workspace_floats.argtypes = [ctypes.c_int,
                                                     ctypes.c_int]
         lib.totsu_mega_workspace_floats.restype = ctypes.c_longlong
-        lib.totsu_mega_struct_size.argtypes = []
-        lib.totsu_mega_struct_size.restype = ctypes.c_int
-        if lib.totsu_mega_struct_size() != ctypes.sizeof(_MegaArgs):
-            raise RuntimeError("megakernel: MegaArgs layout mismatch")
+        lib.totsu_mega_smem_optin.argtypes = [ctypes.c_int]
+        lib.totsu_mega_smem_optin.restype = ctypes.c_int
+        for name in ("totsu_mega_struct_size", "totsu_mega_threads",
+                     "totsu_mega_scalars"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
+        if (lib.totsu_mega_struct_size() != ctypes.sizeof(_MegaArgs)
+                or lib.totsu_mega_threads() != THREADS
+                or lib.totsu_mega_scalars() != SCALARS
+                or any(lib.totsu_mega_workspace_floats(n, r)
+                       != workspace_floats(n, r)
+                       for n, r in ((1, 1), (701, 69), (1000, 48)))):
+            raise RuntimeError("megakernel: MegaArgs or plan layout "
+                               "mismatch")
         lib._typed = True
     return lib
+
+
+_plans = {}  # (m, n, cone, device, overrides) -> (plan, tensors on the card)
+
+
+def device_plan(m: int, n: int, cone: ConeLayout, device):
+    """The plan for an (m, n) problem on ``device`` (a CUDA device), with
+    its tables on the card; cached."""
+    key = (m, n, cone, device, tuple(sorted(PLAN_OVERRIDES.items())))
+    hit = _plans.get(key)
+    if hit is None:
+        lib = _lib()
+        index = device.index if device.index is not None else \
+            torch.cuda.current_device()
+        props = torch.cuda.get_device_properties(device)
+        smem = lib.totsu_mega_smem_optin(index)
+        if smem <= 0:
+            raise RuntimeError("megakernel: cannot read the card's shared "
+                               "memory per block")
+        tables = cone_tables(cone)
+        pl = plan(m, n, tables, props.multi_processor_count, smem,
+                  **PLAN_OVERRIDES)
+        ints = [torch.tensor(np.asarray(x, np.int32), device=device)
+                for x in (pl.row_off, pl.blk_off, pl.tri_off, pl.a_smem)]
+        loc = [torch.tensor(t, device=device)
+               for t in local_tables(pl, tables)]
+        hit = _plans[key] = (pl, ints, loc)
+    return hit
 
 
 def solve_mega_plain(a, c_it, b_it, c_ex, b_ex, dp_tau, dp_sigma, u0, v0,
@@ -155,7 +438,10 @@ def solve_mega_cuda(a, c_it, b_it, c_ex, b_ex, dp_tau, dp_sigma, u0, v0,
                     eps_zero: float, max_iter: int, check_period: int,
                     relax: float = 1.0, accel: str = "", sb=None, sc=None,
                     check_at_start: bool = False):
-    """Launch the whole-solve CUDA kernel (CUDA tensors only)."""
+    """Launch the whole-solve CUDA kernel (CUDA tensors only): one
+    cooperative launch of :func:`device_plan`'s grid; raises when the
+    build or the launch fails (for one, a grid the card cannot hold
+    resident at once)."""
     global launches
     if a.device.type != "cuda":
         raise ValueError("solve_mega_cuda: tensors must be on a CUDA device")
@@ -182,7 +468,8 @@ def solve_mega_cuda(a, c_it, b_it, c_ex, b_ex, dp_tau, dp_sigma, u0, v0,
         torch.linalg.vector_norm(c_ex), u0[3], v0[2],
         one if sb is None else sb.to(torch.float32),
         one if sc is None else sc.to(torch.float32)]).tolist()
-    tables = [torch.tensor(t, device=dev) for t in cone_tables(cone)]
+    pl, (row_off, blk_off, tri_off, a_smem), tables = device_plan(
+        m, n, cone, dev)
     kind, blocks, tri, tri_alpha = tables
 
     lib = _lib()
@@ -190,8 +477,10 @@ def solve_mega_cuda(a, c_it, b_it, c_ex, b_ex, dp_tau, dp_sigma, u0, v0,
            for name, length in (("ux", n), ("uy", m), ("us", m), ("vn", n),
                                 ("vm", m), ("scal_out", 7))}
     int_out = torch.empty(2, dtype=torch.int32, device=dev)
-    scratch = torch.empty(int(lib.totsu_mega_workspace_floats(m, n)),
+    scratch = torch.empty(0 if pl.vec_smem else pl.grid * pl.ws_floats,
                           dtype=torch.float32, device=dev)
+    partials = torch.empty(pl.partials_len, dtype=torch.float32, device=dev)
+    barrier = torch.zeros(1, dtype=torch.int32, device=dev)
     args = _MegaArgs(
         a=a.data_ptr(), c_it=c_it.data_ptr(), b_it=b_it.data_ptr(),
         c_ex=c_ex.data_ptr(), b_ex=b_ex.data_ptr(),
@@ -203,11 +492,19 @@ def solve_mega_cuda(a, c_it, b_it, c_ex, b_ex, dp_tau, dp_sigma, u0, v0,
         blocks=blocks.data_ptr(), tri=tri.data_ptr(),
         tri_alpha=tri_alpha.data_ptr(),
         **{name: t.data_ptr() for name, t in out.items()},
-        int_out=int_out.data_ptr(), scratch=scratch.data_ptr(),
+        int_out=int_out.data_ptr(),
+        scratch=scratch.data_ptr() if scratch.numel() else None,
+        row_off=row_off.data_ptr(), blk_off=blk_off.data_ptr(),
+        tri_off=tri_off.data_ptr(), a_smem=a_smem.data_ptr(),
+        partials=partials.data_ptr() if partials.numel() else None,
+        barrier=barrier.data_ptr(),
         m=m, n=n, nb=blocks.shape[0], nt=tri.shape[0],
         max_iter=int(max_iter),
         check_period=int(check_period), halpern=int(accel == "halpern"),
-        check_at_start=int(bool(check_at_start)),
+        check_at_start=int(bool(check_at_start)), grid=pl.grid,
+        rows_max=pl.rows_max, col_threads=pl.col_threads,
+        split=int(pl.split), vec_smem=int(pl.vec_smem),
+        a_floats=pl.a_floats, ws_floats=pl.ws_floats, ld=pl.ld,
         dptt=scal[0], dpst=scal[1], norm_b=scal[2], norm_c=scal[3],
         ut0=scal[4], v10=scal[5], sb=scal[6], sc=scal[7],
         eps_acc=float(eps_acc), eps_inf=float(eps_inf),
