@@ -395,29 +395,31 @@ OPS_EXP_BLOCK, OPS_EXP_EXPAND, OPS_EXP_HYBRID = 35, 22, 42
 OPS_POW_BLOCK, OPS_POW_TRIP = 60, 58
 
 
-def cone_proj_ops(blocks, kind, alpha, dual):
-    """Operations the blocked projection does on these blocks: every
-    block's tests, plus the trips of the root finders that each block
-    runs until its state stops changing (the kernel's exit), counted by
-    running the plain version with a per-block trip count."""
+def cone_proj_trips(blocks, kind, alpha, dual):
+    """The trips of the plain version's root finders on these blocks, each
+    block running until its state stops changing (the exit of a serial
+    root finder): the total of each loop (exp: the bracket expansion,
+    then the Newton-bisection; pow: one loop) and the longest chain, the
+    most trips one block takes over its loops."""
     from totsu_tpu_torch.ops.kernels import cone_proj as cp
     from totsu_tpu_torch.solver import cone as cones
-    totals = []
+    per_block = []
 
     def counting(step, state, trips):
         done = torch.zeros(state[0].shape, dtype=torch.bool,
                            device=state[0].device)
-        total = 0
+        taken = torch.zeros(state[0].shape, dtype=torch.long,
+                            device=state[0].device)
         for _ in range(trips):
             nxt = step(state)
             same = torch.stack([(a == b) | (a.isnan() & b.isnan())
                                 for a, b in zip(nxt, state)]).all(0)
-            total += int((~done).sum())
+            taken += ~done
             done |= same
             if bool(done.all()):
                 break
             state = nxt
-        totals.append(total)
+        per_block.append(taken)
         return state
 
     real = cones._fixed_trips
@@ -426,6 +428,19 @@ def cone_proj_ops(blocks, kind, alpha, dual):
         cp.cone_proj_plain(blocks, kind, alpha, dual)
     finally:
         cones._fixed_trips = real
+    # the loops of one call run on the same blocks in the same order
+    chain = int(sum(per_block).max()) if per_block else 0
+    return [int(t.sum()) for t in per_block], chain
+
+
+def cone_proj_ops(blocks, kind, alpha, dual):
+    """Operations the blocked projection does on these blocks: every
+    block's tests, plus the trips of the root finders that each block
+    runs until its state stops changing (the serial root finder's exit;
+    ``cone_proj_trips``). The count follows the reference's trips, not
+    the kernel's lane-parallel rounds, so the bound does not move with the
+    implementation."""
+    totals = cone_proj_trips(blocks, kind, alpha, dual)[0]
     count = blocks.shape[0]
     if kind == "exp":
         expand, hybrid = totals if totals else (0, 0)
@@ -448,6 +463,44 @@ def bound_ms(nbytes, ops, dtype=torch.float32):
     t_ops = ops / PEAK_OPS_PER_S[dtype]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def fmt_ms(x):
+    return "n/a" if x is None else f"{x:.4f}"
+
+
+def cone_eval_latency(cp, dev, evals=20_000):
+    """Per (kind, str(dtype)): clocks and device ms of one evaluation of
+    the exp root function with its derivative or of the pow one, from a
+    chain of ``evals`` dependent evaluations in one thread
+    (``cp.eval_clocks``): clocks by ``clock64``, ms by CUDA events around
+    the launch."""
+    out = {}
+    for kind in ("exp", "pow"):
+        for dt in (torch.float32, torch.float64):
+            cp.eval_clocks(kind, dt, 10, dev)  # build, load, warm up
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            clocks = cp.eval_clocks(kind, dt, evals, dev)
+            end.record()
+            end.synchronize()
+            out[(kind, str(dt))] = (clocks / evals,
+                                    start.elapsed_time(end) / evals)
+    return out
+
+
+def cone_proj_floor(cp, blocks, kind, alpha, dual, latency):
+    """(the kernel's longest chain by its torch model, the serial
+    reference's longest chain, the kernel's model-derived latency floor in
+    ms): the model's chain of dependent root-function evaluations times
+    one evaluation's latency (``cone_eval_latency``). The chain is the
+    CPU model's, not counted on the card, so the floor is an estimate."""
+    al = alpha.cpu() if isinstance(alpha, torch.Tensor) else alpha
+    chains = cp._lane_model(blocks.cpu(), kind, al, dual)[1]
+    chain = int(chains.max()) if chains.numel() else 0
+    serial = cone_proj_trips(blocks, kind, alpha, dual)[1]
+    return chain, serial, chain * latency[(kind, str(blocks.dtype))][1]
 
 
 def _median(*xs):
@@ -610,8 +663,6 @@ def main():
 
     dm_rand = dm_times(dm, a, u, v)
 
-    def fmt(x):
-        return "n/a" if x is None else f"{x:.4f}"
     print("phase 2 dual_matvec vs plain: ok at "
           + " ".join(f"({m},{n})" for m, n in dm_shapes)
           + " x f32/bf16/f64 x aligned/unaligned base; max err at "
@@ -621,7 +672,7 @@ def main():
           + "; ms per call kernel/plain at (4000,1000) [device ms "
           "kernel/plain] "
           + ", ".join(f"{k.split('.')[-1]} {t[0]:.4f}/{t[1]:.4f} "
-                      f"[{fmt(t[2])}/{fmt(t[3])}]"
+                      f"[{fmt_ms(t[2])}/{fmt_ms(t[3])}]"
                       for k, t in times.items())
           + f"; two torch.mv {dm_library_ms:.4f} ms; bound f32 "
           f"{dm_bound[0]:.4f} ms ({dm_bound[1]})", flush=True)
@@ -646,6 +697,7 @@ def main():
     alpha_np = np.repeat([0.1, 0.3, 0.5, 0.9], 500)
     cp_err = {}
     cp_times = {}
+    cp_latency = cone_eval_latency(cp, dev)
     for dt in (torch.float32, torch.float64):
         for kind, blk in (("exp", exp_np), ("pow", pow_np)):
             xb = torch.tensor(blk, dtype=dt, device=dev)
@@ -655,6 +707,7 @@ def main():
                 min=1e-300)
             for dual in (False, True):
                 got = cp.cone_proj_cuda(xb, kind, al, dual)
+                again = cp.cone_proj_cuda(xb, kind, al, dual)
                 want = cp.cone_proj_plain(xb, kind, al, dual)
                 torch.cuda.synchronize()
                 check(bool(torch.isfinite(got).all()),
@@ -663,20 +716,40 @@ def main():
                 check(rel <= cp_tol[dt],
                       f"cone_proj {kind} {dt} dual={dual}: max error "
                       f"{rel:.3e} of the block norm > {cp_tol[dt]:g}")
+                check(torch.equal(got, again), f"cone_proj {kind} {dt} "
+                      f"dual={dual}: a second call differs")
                 cp_err[(kind, str(dt), dual)] = rel
-            k1 = loop_ms(lambda: cp.cone_proj_cuda(xb, kind, al, False))
+
+            def kern():
+                return cp.cone_proj_cuda(xb, kind, al, False)
+            k1 = loop_ms(kern)
             p1 = loop_ms(lambda: cp.cone_proj_plain(xb, kind, al, False),
                          calls=5, warmup=1)
-            cp_times[(kind, str(dt))] = (k1, p1)
+            cp_times[(kind, str(dt))] = (k1, p1, stream_ms(kern),
+                                         cone_proj_floor(cp, xb, kind, al,
+                                                         False, cp_latency))
+    pl2b = cp.device_plan(2000, "exp", torch.float32, dev)
     print("phase 2b cone_proj vs plain (2000 exp, 2000 pow blocks at "
-          "alpha 0.1/0.3/0.5/0.9, scales 1e-6..1e6): max error / block "
+          "alpha 0.1/0.3/0.5/0.9, scales 1e-6..1e6; plan "
+          f"{pl2b.describe()}): max error / block "
           "norm " + ", ".join(
               f"{k} {d.split('.')[-1]} {'dual' if du else 'primal'} "
               f"{e:.2e}" for (k, d, du), e in cp_err.items())
           + f" (bounds f32 {cp_tol[torch.float32]:g}, f64 "
-          f"{cp_tol[torch.float64]:g}); ms per call kernel/plain "
-          + ", ".join(f"{k} {d.split('.')[-1]} {t[0]:.4f}/{t[1]:.2f}"
+          f"{cp_tol[torch.float64]:g}); a second call bitwise equal; ms "
+          "per call kernel/plain back to back [kernel device ms by events] "
+          + ", ".join(f"{k} {d.split('.')[-1]} {t[0]:.4f}/{t[1]:.2f} "
+                      f"[{fmt_ms(t[2])}]"
                       for (k, d), t in cp_times.items()), flush=True)
+    print("  cone_proj latency: clocks and us per root-function "
+          "evaluation " + ", ".join(
+              f"{k} {d.split('.')[-1]} {c:.0f}/{1e3 * ms:.4f}"
+              for (k, d), (c, ms) in cp_latency.items())
+          + "; primal chains (lane model / serial reference) and "
+          "model-derived latency floors in us " + ", ".join(
+              f"{k} {d.split('.')[-1]} {t[3][0]}/{t[3][1]} "
+              f"{1e3 * t[3][2]:.4f}" for (k, d), t in cp_times.items()),
+          flush=True)
 
     # ---- phase 3: the golden LP in f64 on the card
     c, a, b = interop.problem_from_numpy(
@@ -1086,28 +1159,45 @@ def main():
               flush=True)
 
     # cone_proj on the last inputs the logistic regression's host loop
-    # gave it (2000 f32 exp blocks, primal and dual)
+    # gave it (2000 f32 exp blocks, primal and dual): against its plain
+    # version at phase 2b's tolerance, a second call bitwise equal; timed
+    # back to back and by events behind a sleeping stream
     cp_main = {}
     for dual, (blk, kind, al) in cp_recorded.items():
         got = cp.cone_proj_cuda(blk, kind, al, dual)
+        again = cp.cone_proj_cuda(blk, kind, al, dual)
         want = cp.cone_proj_plain(blk, kind, al, dual)
         err = float((got - want).abs().max())
         nrm = torch.linalg.vector_norm(blk.double(), dim=1).clamp(min=1e-300)
         rel = float(((got - want).double().abs().amax(1) / nrm).max())
         check(rel <= cp_tol[blk.dtype],
               f"cone_proj on the main path's inputs: {rel:.3e}")
-        k_ms = loop_ms(lambda: cp.cone_proj_cuda(blk, kind, al, dual))
+        check(torch.equal(got, again), "cone_proj on the main path's "
+              "inputs: a second call differs")
+
+        def kern():
+            return cp.cone_proj_cuda(blk, kind, al, dual)
+        k_ms = loop_ms(kern)
         p_ms = loop_ms(lambda: cp.cone_proj_plain(blk, kind, al, dual),
                        calls=5, warmup=1)
         ops = cone_proj_ops(blk, kind, al, dual)
         cp_main[dual] = (err, k_ms, p_ms,
                          bound_ms(2 * blk.numel() * blk.element_size(), ops,
-                                  blk.dtype), ops, blk.shape[0])
-    print("cone_proj on the logistic regression's inputs: " + "; ".join(
-        f"{'dual' if du else 'primal'} {r[5]} blocks: max abs err "
-        f"{r[0]:.3e}, {r[1]:.4f}/{r[2]:.2f} ms kernel/plain, {r[4]} "
-        f"operations, bound {r[3][0]:.6f} ms ({r[3][1]})"
-        for du, r in cp_main.items()), flush=True)
+                                  blk.dtype), ops, blk.shape[0],
+                         stream_ms(kern),
+                         cone_proj_floor(cp, blk, kind, al, dual, cp_latency),
+                         cone_proj_trips(blk, kind, al, dual)[0])
+    print("cone_proj on the logistic regression's inputs (plan "
+          f"{cp.device_plan(blk.shape[0], kind, blk.dtype, dev).describe()}"
+          "; a second call bitwise equal): " + "; ".join(
+              f"{'dual' if du else 'primal'} {r[5]} blocks: max abs err "
+              f"{r[0]:.3e}, {r[1]:.4f}/{r[2]:.2f} ms kernel/plain back to "
+              f"back, kernel device {fmt_ms(r[6])} ms by events; "
+              f"{r[4]} operations, bound {r[3][0]:.6f} ms ({r[3][1]}); "
+              f"reference trips {r[8]}, longest chain {r[7][1]}; lane "
+              f"model's chain {r[7][0]}, model-derived latency floor "
+              f"{r[7][2]:.6f} ms"
+              for du, r in cp_main.items()), flush=True)
 
     # ---- phase 10: where the host loop's time goes, 200 iterations of
     # each host-loop cell under torch.profiler (kernel rows only)
@@ -1153,7 +1243,7 @@ def main():
          "max_abs_err": max(r[0] for r in cp_main.values()),
          "ms": primal[1], "plain_ms": primal[2],
          "bound_ms": primal[3][0], "bound_by": primal[3][1],
-         "library_ms": None},
+         "library_ms": None, "device_ms": primal[6]},
     ]}
     print(smi)
     print(json.dumps(record))

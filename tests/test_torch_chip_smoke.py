@@ -264,3 +264,78 @@ def test_mega_timing_sweeps_every_cell():
     import runpy
     script = runpy.run_path(os.path.join(cs.ROOT, "mega_timing.py"))
     assert set(script["SWEEP"]) == set(script["CELLS"])
+
+
+def test_cone_proj_trips_counts_the_longest_chain():
+    # per loop the trips of all blocks; the chain is the most one block
+    # takes over its loops, as a block run alone shows
+    rng = np.random.default_rng(4)
+    xb = torch.from_numpy(cs.cone_blocks("exp", 40, rng))
+    totals, chain = cs.cone_proj_trips(xb, "exp", 0.0, False)
+    assert len(totals) == 2 and 0 < chain <= sum(totals)
+    alone = [sum(cs.cone_proj_trips(xb[i:i + 1], "exp", 0.0, False)[0])
+             for i in range(40)]
+    assert chain == max(alone)
+    inside = torch.tensor([[0.0, 1.0, 2.0]] * 3, dtype=torch.float64)
+    assert cs.cone_proj_trips(inside, "exp", 0.0, False) == ([], 0)
+    pw = torch.from_numpy(cs.cone_blocks("pow", 40, rng, 0.3))
+    totals, chain = cs.cone_proj_trips(pw, "pow", 0.3, True)
+    assert len(totals) == 1 and 0 < chain <= totals[0]
+
+
+def test_cone_eval_latency_divides_by_the_chain(monkeypatch):
+    # clocks and ms per evaluation: the chain's clocks and its events time
+    # over its length, per kind and dtype, after a warm-up call
+    calls = []
+
+    class FakeCp:
+        @staticmethod
+        def eval_clocks(kind, dtype, evals, device):
+            calls.append((kind, dtype, evals))
+            return 300 * evals
+
+    class Event:
+        t = 0.0
+
+        def __init__(self, enable_timing):
+            assert enable_timing
+
+        def record(self):
+            Event.t += 2.0
+            self.at = Event.t
+
+        def synchronize(self):
+            pass
+
+        def elapsed_time(self, other):
+            return other.at - self.at
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    out = cs.cone_eval_latency(FakeCp, "cuda", evals=1000)
+    assert set(out) == {(k, str(d)) for k in ("exp", "pow")
+                        for d in (torch.float32, torch.float64)}
+    assert all(v == pytest.approx((300.0, 0.002)) for v in out.values())
+    assert calls[:2] == [("exp", torch.float32, 10),
+                         ("exp", torch.float32, 1000)]
+
+
+def test_cone_proj_floor_is_the_model_chain_times_the_latency():
+    rng = np.random.default_rng(5)
+    xb = torch.from_numpy(cs.cone_blocks("exp", 100, rng)).float()
+    latency = {("exp", str(torch.float32)): (250.0, 1e-4)}
+    chain, serial, floor = cs.cone_proj_floor(cp, xb, "exp", 0.0, False,
+                                              latency)
+    assert chain == int(cp._lane_model(xb, "exp", 0.0, False)[1].max())
+    assert serial == cs.cone_proj_trips(xb, "exp", 0.0, False)[1]
+    assert 0 < chain < serial and floor == pytest.approx(chain * 1e-4)
+
+
+def test_cp_timing_refuses_without_cuda():
+    script = os.path.join(cs.ROOT, "cp_timing.py")
+    code = ("import sys, runpy, torch; torch.cuda.is_available = "
+            f"lambda: False; sys.argv = [{script!r}]; "
+            f"runpy.run_path({script!r}, run_name='__main__')")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+

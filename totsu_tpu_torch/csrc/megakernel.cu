@@ -47,10 +47,13 @@
 //    warp-shuffle + shared-memory sums in a fixed order.
 //  * SOC/RSOC blocks: a warp per block, the RSOC's involutive Givens map
 //    on its first two slots; length-1 RSOC blocks are R+ elements. Exp
-//    and pow 3-blocks: a thread per block running the fixed-trip core of
-//    cone_exppow.cuh behind a call that is not inlined, in a loop
+//    and pow 3-blocks: a thread per block running cone_exppow.cuh's
+//    per-thread form behind a call that is not inlined, in a loop
 //    instantiation (kTri) used only when the cone has such blocks: the
-//    core adds live values and spills (PERF.md).
+//    core adds live values and spills (PERF.md). Kernel B's lane-parallel
+//    form, a group of lanes per block, was slower here on the H100: a CTA
+//    holds a few dozen 3-blocks, and each group runs a whole trip per
+//    block (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -429,8 +432,8 @@ __device__ __noinline__ void project_tri(float* x, bool dual, const int* tri,
   for (int bi = threadIdx.x; bi < nt; bi += kThreads) {
     float* xb = x + tri[2 * bi];
     float v0 = xb[0], v1 = xb[1], v2 = xb[2];
-    totsu_cone::proj_block<float>(v0, v1, v2, tri[2 * bi + 1],
-                                  tri_alpha[bi], dual);
+    totsu_cone::per_thread::proj_block<float>(v0, v1, v2, tri[2 * bi + 1],
+                                              tri_alpha[bi], dual);
     xb[0] = v0;
     xb[1] = v1;
     xb[2] = v2;

@@ -31,11 +31,12 @@ from totsu_tpu_torch.solver.cone import (ConeLayout, ZERO, RPOS, SOC, RSOC,
 #: kernel launches since the last reset (CUDA only)
 launches = 0
 
-#: Envelope of the kernel: A (f32) within half of the H100's 50 MB L2 (by
-#: NVIDIA's data sheet), set for the first, single-CTA design, which
-#: streamed A from L2. Cut into slices, such an A also fits the shared
-#: memory of the 132 SMs (232,448 bytes each). Derived from the design,
-#: not measured on the H100.
+#: Envelope of the kernel: the largest A (f32) it takes. The plan cuts A
+#: into row slices, one per CTA, each held in its SM's shared memory
+#: (232,448 bytes a block, about 30 MB over 132 SMs beside the vectors);
+#: a slice that does not fit is read from L2 (50 MB) by its CTA on every
+#: pass. 24 MiB keeps A within both. The value is the first design's;
+#: what the kernel costs near and past it is not measured on the H100.
 A_BUDGET_BYTES = 24 * 1024 * 1024
 
 #: threads per CTA (the kernel's ``kThreads``)
@@ -83,8 +84,10 @@ def supported(cone: ConeLayout) -> bool:
 
 
 def fits(m: int, n: int, cone: ConeLayout) -> bool:
-    """True when A (f32) fits the kernel's L2 budget (the cone adds only
-    an m-int kind table and a row of a few ints per block)."""
+    """True when A (f32) is within ``A_BUDGET_BYTES``, the envelope of A
+    sliced over the SMs' shared memory (or read from L2 where a slice does
+    not fit); the cone adds only an m-int kind table and a row of a few
+    ints per block."""
     del cone
     return 4 * m * n <= A_BUDGET_BYTES
 

@@ -18,7 +18,7 @@ The exp and pow cones are not self-dual: their dual projections use the
 Moreau identity proj_{K*}(x) = x + proj_K(-x). For CPU tensors their
 blocks go through the plain PyTorch cores below; for CUDA tensors through
 the blocked projection kernel (``ops/kernels/cone_proj.py``), which runs
-the same arithmetic one block per thread.
+the same cases and Newton step with L lanes of a warp per block.
 
 ``psd`` and ``custom`` factors can be built (so layouts carry across from
 the JAX package), but projecting them raises ``NotImplementedError``:
@@ -179,7 +179,7 @@ def _fixed_trips(step, state, trips: int):
 def _on_roots(root, outs, solve, *args):
     """Write ``solve(*args[root])`` into the tensors ``outs`` at the
     elements where ``root`` holds: the root finders run only on the
-    blocks that need them (the CUDA kernel's thread per block does the
+    blocks that need them (each of the CUDA kernels' blocks does the
     same), so the other blocks' discarded arithmetic neither costs eager
     launches nor keeps the fixed-trip loops from their fixed point."""
     idx = root.nonzero()[:, 0]
@@ -191,73 +191,63 @@ def _on_roots(root, outs, solve, *args):
     return outs
 
 
-def _exp_root(r0, s0, t0):
-    """The exp projection of blocks outside K, its polar and the negative
-    quadrant (see :func:`_proj_exp_rst`)."""
+def _exp_h(rho, r0, s0, t0, grad: bool):
+    """h(rho) of the exp root problem rescaled by e^{-|rho|} (rho^2 - rho
+    + 1) > 0, from e^{-|rho|} and e^{-2|rho|} only (every term bounded);
+    with ``grad`` also its derivative."""
+    num1 = (rho - 1.0) * r0 + s0          # coefficient of e^{rho}
+    num2 = r0 - rho * s0                  # coefficient of e^{-rho}
+    den = rho * (rho - 1.0) + 1.0         # > 0 for all rho
+    e1 = torch.exp(-rho.abs())
+    e2 = torch.exp(-2.0 * rho.abs())
+    take_pos = rho >= 0
+    v = torch.where(take_pos, num1 - num2 * e2, num1 * e2 - num2) \
+        - t0 * den * e1
+    if not grad:
+        return v
+    denp = 2.0 * rho - 1.0
+    g = torch.where(take_pos, r0 + (s0 + 2.0 * num2) * e2,
+                    (r0 + 2.0 * num1) * e2 + s0) \
+        - t0 * torch.where(take_pos, denp - den, denp + den) * e1
+    return v, g
+
+
+def _exp_bracket(r0, s0):
+    """The root's bracket (lo, hi) from the validity constraints s(rho) >
+    0, lambda(rho) > 0; at most one end is infinite for blocks outside K,
+    its polar and the negative quadrant:
+      r0 > 0 -> rho > 1 - s0/r0        r0 < 0 -> rho < 1 - s0/r0
+      s0 < 0 -> rho > r0/s0            s0 > 0 -> rho < r0/s0"""
     safe_s = torch.where(s0 != 0, s0, 1.0)
     safe_r = torch.where(r0 != 0, r0, 1.0)
-
-    def hval(rho, grad: bool):
-        # h rescaled by e^{-|rho|} (rho^2 - rho + 1) > 0: only the branch
-        # that rho's sign selects, from e^{-|rho|} and e^{-2|rho|}
-        num1 = (rho - 1.0) * r0 + s0          # coefficient of e^{rho}
-        num2 = r0 - rho * s0                  # coefficient of e^{-rho}
-        den = rho * (rho - 1.0) + 1.0         # > 0 for all rho
-        e1 = torch.exp(-rho.abs())
-        e2 = torch.exp(-2.0 * rho.abs())
-        take_pos = rho >= 0
-        v = torch.where(take_pos, num1 - num2 * e2, num1 * e2 - num2) \
-            - t0 * den * e1
-        if not grad:
-            return v
-        denp = 2.0 * rho - 1.0
-        g = torch.where(take_pos, r0 + (s0 + 2.0 * num2) * e2,
-                        (r0 + 2.0 * num1) * e2 + s0) \
-            - t0 * torch.where(take_pos, denp - den, denp + den) * e1
-        return v, g
-
-    # bracket from the validity constraints s(rho) > 0, lambda(rho) > 0:
-    #   r0 > 0 -> rho > 1 - s0/r0        r0 < 0 -> rho < 1 - s0/r0
-    #   s0 < 0 -> rho > r0/s0            s0 > 0 -> rho < r0/s0
     inf = float("inf")
     lo = torch.maximum(torch.where(r0 > 0, 1.0 - s0 / safe_r, -inf),
                        torch.where(s0 < 0, r0 / safe_s, -inf))
     hi = torch.minimum(torch.where(r0 < 0, 1.0 - s0 / safe_r, inf),
                        torch.where(s0 > 0, r0 / safe_s, inf))
-    lo_inf, hi_inf = torch.isinf(lo), torch.isinf(hi)
+    return lo, hi
 
-    def expand(state):
-        # double the (at most one) infinite end until h changes sign
-        lo_f, hi_f = state
-        hi_f = torch.where(hi_inf & (hval(hi_f, False) < 0),
-                           lo_f + 2.0 * (hi_f - lo_f), hi_f)
-        lo_f = torch.where(lo_inf & (hval(lo_f, False) > 0),
-                           hi_f + 2.0 * (lo_f - hi_f), lo_f)
-        return lo_f, hi_f
 
-    lo_f, hi_f = _fixed_trips(
-        expand, (torch.where(torch.isfinite(lo), lo, hi - 1.0),
-                 torch.where(torch.isfinite(hi), hi, lo + 1.0)),
-        EXP_EXPAND_TRIPS)
+def _exp_hybrid(state, r0, s0, t0):
+    """One trip of the safeguarded Newton-bisection on h, rtsafe-style:
+    the sign at r shrinks the bracket like bisection; the next point is
+    the Newton step when it lands strictly inside the bracket, or rounds
+    to r itself (converged to the last ULP: without this the iterate would
+    be thrown back to the midpoint of a stale one-sided bracket), else the
+    midpoint."""
+    lo_f, hi_f, r = state
+    v, g = _exp_h(r, r0, s0, t0, True)
+    neg = v < 0                           # h increasing: root above r
+    lo_f = torch.where(neg, r, lo_f)
+    hi_f = torch.where(neg, hi_f, r)
+    nxt = r - v / torch.where(g != 0, g, 1.0)
+    ok = torch.isfinite(nxt) & (g != 0) & \
+        (((nxt > lo_f) & (nxt < hi_f)) | (nxt == r))
+    return lo_f, hi_f, torch.where(ok, nxt, 0.5 * (lo_f + hi_f))
 
-    def hybrid(state):
-        # rtsafe-style: the sign at r shrinks the bracket like bisection;
-        # the next point is the Newton step when it lands strictly inside
-        # the bracket, or rounds to r itself (converged to the last ULP:
-        # without this the iterate would be thrown back to the midpoint of
-        # a stale one-sided bracket), else the midpoint
-        lo_f, hi_f, r = state
-        v, g = hval(r, True)
-        neg = v < 0                           # h increasing: root above r
-        lo_f = torch.where(neg, r, lo_f)
-        hi_f = torch.where(neg, hi_f, r)
-        nxt = r - v / torch.where(g != 0, g, 1.0)
-        ok = torch.isfinite(nxt) & (g != 0) & \
-            (((nxt > lo_f) & (nxt < hi_f)) | (nxt == r))
-        return lo_f, hi_f, torch.where(ok, nxt, 0.5 * (lo_f + hi_f))
 
-    _, _, rho = _fixed_trips(hybrid, (lo_f, hi_f, 0.5 * (lo_f + hi_f)),
-                             EXP_TRIPS[r0.dtype])
+def _exp_from_root(rho, r0, s0, t0):
+    """The projection (r, s, t) at the root rho."""
     den = rho * (rho - 1.0) + 1.0
     s = torch.clamp(((rho - 1.0) * r0 + s0) / den, min=0.0)
     # t: the boundary form s e^rho is ill-conditioned for rho >> 0, the
@@ -269,7 +259,33 @@ def _exp_root(r0, s0, t0):
     return rho * s, s, t
 
 
-def _proj_exp_rst(r0, s0, t0):
+def _exp_root(r0, s0, t0):
+    """The exp projection of blocks outside K, its polar and the negative
+    quadrant (see :func:`_proj_exp_rst`): bracket expansion, then the
+    Newton-bisection hybrid."""
+    lo, hi = _exp_bracket(r0, s0)
+    lo_inf, hi_inf = torch.isinf(lo), torch.isinf(hi)
+
+    def expand(state):
+        # double the (at most one) infinite end until h changes sign
+        lo_f, hi_f = state
+        hi_f = torch.where(hi_inf & (_exp_h(hi_f, r0, s0, t0, False) < 0),
+                           lo_f + 2.0 * (hi_f - lo_f), hi_f)
+        lo_f = torch.where(lo_inf & (_exp_h(lo_f, r0, s0, t0, False) > 0),
+                           hi_f + 2.0 * (lo_f - hi_f), lo_f)
+        return lo_f, hi_f
+
+    lo_f, hi_f = _fixed_trips(
+        expand, (torch.where(torch.isfinite(lo), lo, hi - 1.0),
+                 torch.where(torch.isfinite(hi), hi, lo + 1.0)),
+        EXP_EXPAND_TRIPS)
+    _, _, rho = _fixed_trips(lambda st: _exp_hybrid(st, r0, s0, t0),
+                             (lo_f, hi_f, 0.5 * (lo_f + hi_f)),
+                             EXP_TRIPS[r0.dtype])
+    return _exp_from_root(rho, r0, s0, t0)
+
+
+def _proj_exp_rst(r0, s0, t0, root=_exp_root):
     """Elementwise exponential-cone projection: same-shaped 1-D tensors
     (r0, s0, t0), each element an independent block, to the projected
     (r, s, t). Port of ``totsu_tpu.solver.cone._proj_exp_rst`` (Friberg,
@@ -284,7 +300,9 @@ def _proj_exp_rst(r0, s0, t0):
     stays bounded while the expansion pushes rho to +-2^40.
 
     Trivial cases, in order of precedence: v0 in K -> v0; v0 in the polar
-    -> 0; r0 <= 0 and s0 <= 0 -> (r0, 0, max(t0, 0)).
+    -> 0; r0 <= 0 and s0 <= 0 -> (r0, 0, max(t0, 0)). ``root`` projects
+    the other blocks (:func:`_exp_root`; the CUDA kernel's lane-parallel
+    root finder has a torch model that passes its own).
     """
     e = torch.tensor(torch.e, dtype=r0.dtype, device=r0.device)
     safe_s = torch.where(s0 != 0, s0, 1.0)
@@ -300,7 +318,7 @@ def _proj_exp_rst(r0, s0, t0):
     out_t = torch.where(in_cone, t0, torch.where(
         in_polar, zero, torch.clamp(t0, min=0.0)))
     return _on_roots(~(in_cone | in_polar | neg_quad), (out_r, out_s, out_t),
-                     _exp_root, r0, s0, t0)
+                     root, r0, s0, t0)
 
 
 def _proj_exp_blocks(xb: torch.Tensor) -> torch.Tensor:
@@ -308,52 +326,69 @@ def _proj_exp_blocks(xb: torch.Tensor) -> torch.Tensor:
     return torch.stack(_proj_exp_rst(xb[:, 0], xb[:, 1], xb[:, 2]), dim=1)
 
 
+def _pow_half_quad(w0, coef, q):
+    """(w0 + sqrt(w0^2 + 4 c q)) / 2 and the square root; for w0 < 0 the
+    conjugate 2cq / (sqrt - w0), which does not cancel."""
+    s = torch.sqrt(w0 * w0 + 4.0 * coef * q)
+    return torch.where(w0 >= 0, 0.5 * (w0 + s),
+                       2.0 * coef * q / torch.clamp(s - w0,
+                                                    min=_TINY[w0.dtype])), s
+
+
+def _pow_phi(r, x0, y0, az, a, grad: bool):
+    """phi(r) = a log x(r) + (1-a) log y(r) - log r, decreasing in r; with
+    ``grad`` also its derivative a^2 q'/(x sx) + (1-a)^2 q'/(y sy) - 1/r."""
+    b = 1.0 - a
+    tiny = _TINY[x0.dtype]
+    q = r * (az - r)
+    xr, sx = _pow_half_quad(x0, a, q)
+    yr, sy = _pow_half_quad(y0, b, q)
+    v = (a * torch.log(torch.clamp(xr, min=tiny))
+         + b * torch.log(torch.clamp(yr, min=tiny))
+         - torch.log(torch.clamp(r, min=tiny)))
+    if not grad:
+        return v
+    qp = az - 2.0 * r
+    g = (a * a * qp / torch.clamp(xr * sx, min=tiny)
+         + b * b * qp / torch.clamp(yr * sy, min=tiny)
+         - 1.0 / torch.clamp(r, min=tiny))
+    return v, g
+
+
+def _pow_hybrid(state, x0, y0, az, a):
+    """One trip of the safeguarded Newton-bisection on phi (see
+    :func:`_exp_hybrid`)."""
+    lo, hi, r = state
+    v, g = _pow_phi(r, x0, y0, az, a, True)
+    pos = v > 0                           # phi decreasing: root above
+    lo = torch.where(pos, r, lo)
+    hi = torch.where(pos, hi, r)
+    nxt = r - v / torch.where(g != 0, g, 1.0)
+    ok = torch.isfinite(nxt) & (g != 0) & \
+        (((nxt > lo) & (nxt < hi)) | (nxt == r))
+    return lo, hi, torch.where(ok, nxt, 0.5 * (lo + hi))
+
+
+def _pow_from_root(r, x0, y0, az, a):
+    """The projected (x(r), y(r), r) at the root r."""
+    q = r * (az - r)
+    return _pow_half_quad(x0, a, q)[0], _pow_half_quad(y0, 1.0 - a, q)[0], r
+
+
 def _pow_root(x0, y0, az, a):
     """r = |z| of the pow projection of pre-scaled blocks outside K, its
     polar and z = 0, and the projected (x(r), y(r)) (see
-    :func:`_proj_pow_rst`)."""
-    b = 1.0 - a
-    tiny = _TINY[x0.dtype]
-
-    def half_quad(w0, coef, q):
-        """(w0 + sqrt(w0^2 + 4 c q)) / 2 and the square root; for w0 < 0
-        the conjugate 2cq / (sqrt - w0), which does not cancel."""
-        s = torch.sqrt(w0 * w0 + 4.0 * coef * q)
-        return torch.where(w0 >= 0, 0.5 * (w0 + s),
-                           2.0 * coef * q / torch.clamp(s - w0, min=tiny)), s
-
-    def step(state):
-        # phi = a log x(r) + (1-a) log y(r) - log r, decreasing in r, and
-        # its derivative a^2 q'/(x sx) + (1-a)^2 q'/(y sy) - 1/r
-        lo, hi, r = state
-        q = r * (az - r)
-        qp = az - 2.0 * r
-        xr, sx = half_quad(x0, a, q)
-        yr, sy = half_quad(y0, b, q)
-        v = (a * torch.log(torch.clamp(xr, min=tiny))
-             + b * torch.log(torch.clamp(yr, min=tiny))
-             - torch.log(torch.clamp(r, min=tiny)))
-        g = (a * a * qp / torch.clamp(xr * sx, min=tiny)
-             + b * b * qp / torch.clamp(yr * sy, min=tiny)
-             - 1.0 / torch.clamp(r, min=tiny))
-        pos = v > 0                           # phi decreasing: root above
-        lo = torch.where(pos, r, lo)
-        hi = torch.where(pos, hi, r)
-        nxt = r - v / torch.where(g != 0, g, 1.0)
-        ok = torch.isfinite(nxt) & (g != 0) & \
-            (((nxt > lo) & (nxt < hi)) | (nxt == r))
-        return lo, hi, torch.where(ok, nxt, 0.5 * (lo + hi))
-
-    _, _, r = _fixed_trips(step, (torch.zeros_like(az), az, 0.5 * az),
+    :func:`_proj_pow_rst`): the Newton-bisection hybrid on (0, |z0|)."""
+    _, _, r = _fixed_trips(lambda st: _pow_hybrid(st, x0, y0, az, a),
+                           (torch.zeros_like(az), az, 0.5 * az),
                            POW_TRIPS[x0.dtype])
-    q = r * (az - r)
-    return half_quad(x0, a, q)[0], half_quad(y0, b, q)[0], r
+    return _pow_from_root(r, x0, y0, az, a)
 
 
 _TINY = {torch.float32: 1e-38, torch.float64: 1e-300}
 
 
-def _proj_pow_rst(x0, y0, z0, alpha):
+def _proj_pow_rst(x0, y0, z0, alpha, root=_pow_root):
     """Elementwise power-cone projection: same-shaped 1-D tensors (x0,
     y0, z0), each element an independent block; ``alpha`` is a float or a
     tensor of the same shape (per-block exponents). Port of
@@ -370,7 +405,8 @@ def _proj_pow_rst(x0, y0, z0, alpha):
     onto cones are positively homogeneous), so no input overflows.
 
     Trivial cases, in order of precedence: v0 in K -> v0; v0 in the polar
-    -K* -> 0; z0 = 0 -> (max(x0, 0), max(y0, 0), 0).
+    -K* -> 0; z0 = 0 -> (max(x0, 0), max(y0, 0), 0). ``root`` solves
+    the other blocks (:func:`_pow_root`; see :func:`_proj_exp_rst`).
     """
     a = alpha
     tiny = _TINY[x0.dtype]
@@ -396,7 +432,7 @@ def _proj_pow_rst(x0, y0, z0, alpha):
         in_polar, zero, torch.clamp(y0, min=0.0)))
     out_r = torch.where(in_cone, az, zero)
     _on_roots(~(in_cone | in_polar | z_zero), (out_x, out_y, out_r),
-              _pow_root, x0, y0, az, a)
+              root, x0, y0, az, a)
     return out_x * scl, out_y * scl, torch.sign(z0) * out_r * scl
 
 
