@@ -9,7 +9,11 @@ benchmark LP, A 4000 x 1000 f32, and the exp-cone logistic regression,
 A 7040 x 3040 f32, on the host loop; the n=100 LP, a QP, a GP, a
 pow/exp growth portfolio and the n=1000 LP on the megakernel, each with
 its launch plan), and checks the answers against HiGHS, L-BFGS-B and
-SLSQP. Each phase prints one line of its own
+SLSQP; then the direct engine (the golden LP through method='direct'
+in f64; the n=1000 and n=4000 LPs, the logistic regression, the GP and
+the growth portfolio under profile='fast'), the fast profile's
+megakernel branch against the direct engine, and accel='restart' on the
+host loop. Each phase prints one line of its own
 numbers; any failed check raises, so the script exits non-zero and prints
 no final line. It needs a CUDA device and the repository beside it; it imports
 nothing of JAX.
@@ -569,6 +573,70 @@ def profile_loop(fn, iters):
             [(e.key[:40], e.self_device_time_total / iters) for e in top])
 
 
+def drive(paths, kernels, spans=None):
+    """Run each main path once, every kernel's launch count set to 0 just
+    before it and read just after: name -> (result, wall seconds, launch
+    counts, the spans ``time_calls`` recorded during the path)."""
+    runs = {}
+    for name, run in paths.items():
+        for mod in kernels.values():
+            mod.launches = 0
+        if spans is not None:
+            spans.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[name] = (res, wall, {k: mod.launches
+                                  for k, mod in kernels.items()},
+                      list(spans or []))
+        print(f"  main path {name}: status {res.status}, {res.iters} "
+              f"iterations, {wall:.3f} s, launches {runs[name][2]}",
+              flush=True)
+    return runs
+
+
+def time_calls(module, names, spans):
+    """Replace the functions ``names`` of ``module`` by copies that
+    synchronize the card around each call and append (name, seconds,
+    result) to ``spans``; returns the originals, to put back."""
+    real = {name: getattr(module, name) for name in names}
+
+    def wrap(name, fn):
+        def timed_call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spans.append((name, time.perf_counter() - t0, out))
+            return out
+        return timed_call
+
+    for name, fn in real.items():
+        setattr(module, name, wrap(name, fn))
+    return real
+
+
+def span_ms(spans, name):
+    """Milliseconds of the calls of ``name`` among ``spans``."""
+    return 1e3 * sum(t for n, t, _ in spans if n == name)
+
+
+def lp_kkt(c, a, b, x, y):
+    """An LP's residuals in f64 on the host, from x and y (A x + s = b,
+    s >= 0; y >= 0): primal ||max(A x - b, 0)|| / (1 + ||b||), dual
+    ||(A^T y + c, min(y, 0))|| / (1 + ||c||) and the gap |c^T x + b^T y|
+    / (1 + |c^T x| + |b^T y|)."""
+    c, a, b, x, y = (np.asarray(v, dtype=np.float64) for v in (c, a, b, x, y))
+    pri = np.linalg.norm(np.maximum(a @ x - b, 0.0)) / (1.0 + np.linalg.norm(b))
+    dual = np.linalg.norm(np.concatenate([a.T @ y + c, np.minimum(y, 0.0)])) \
+        / (1.0 + np.linalg.norm(c))
+    cx, by = float(c @ x), float(b @ y)
+    gap = abs(cx + by) / (1.0 + abs(cx) + abs(by))
+    return pri, dual, gap
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
@@ -841,21 +909,8 @@ def main():
     mk.solve_mega = recording_solve_mega
     cp.cone_proj_cuda = recording_cone_proj
     dm.dual_matvec_cuda = recording_dual_matvec
-    runs = {}
     try:
-        for name, run in paths.items():
-            for mod in kernels.values():
-                mod.launches = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = run()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            runs[name] = (res, wall, {k: mod.launches
-                                      for k, mod in kernels.items()})
-            print(f"  main path {name}: status {res.status}, {res.iters} "
-                  f"iterations, {wall:.3f} s, launches "
-                  f"{runs[name][2]}", flush=True)
+        runs = drive(paths, kernels)
     finally:
         mk.solve_mega = real_solve_mega
         cp.cone_proj_cuda = real_cone_proj
@@ -863,14 +918,15 @@ def main():
     main_counts = {k: sum(r[2][k] for r in runs.values()) for k in kernels}
     for name, count in main_counts.items():
         check(count > 0, f"the main path launched {name} no time")
-    r_full, wall_full, cnt_full = runs["LP n=1000, host loop"]
-    r_lp_m, wall_lp_m, cnt_lp_m = runs["LP n=100, megakernel"]
-    r_qp_m, wall_qp_m, cnt_qp_m = runs["QP n=50, megakernel"]
-    r_lr, wall_lr, cnt_lr = runs["logistic regression m=1000 n=20, host loop"]
-    r_gp_m, wall_gp_m, cnt_gp_m = runs["GP n=100, megakernel"]
-    r_gr_m, wall_gr_m, cnt_gr_m = runs[
+    r_full, wall_full, cnt_full, _ = runs["LP n=1000, host loop"]
+    r_lp_m, wall_lp_m, cnt_lp_m, _ = runs["LP n=100, megakernel"]
+    r_qp_m, wall_qp_m, cnt_qp_m, _ = runs["QP n=50, megakernel"]
+    r_lr, wall_lr, cnt_lr, _ = runs[
+        "logistic regression m=1000 n=20, host loop"]
+    r_gp_m, wall_gp_m, cnt_gp_m, _ = runs["GP n=100, megakernel"]
+    r_gr_m, wall_gr_m, cnt_gr_m, _ = runs[
         "growth portfolio S=64 n=50, megakernel"]
-    r_full_m, wall_full_m, cnt_full_m = runs["LP n=1000, megakernel"]
+    r_full_m, wall_full_m, cnt_full_m, _ = runs["LP n=1000, megakernel"]
     for what, cnt in (("LP n=100", cnt_lp_m), ("QP n=50", cnt_qp_m),
                       ("GP", cnt_gp_m), ("growth portfolio", cnt_gr_m),
                       ("LP n=1000", cnt_full_m)):
@@ -1214,6 +1270,285 @@ def main():
               f"{nlaunch:.1f} kernel launches per iteration; top kernels "
               "(us per iteration) " + ", ".join(
                   f"{k} {t:.1f}" for k, t in top), flush=True)
+
+    # ---- phases 11-16: the direct engine (Douglas-Rachford on the HSDE,
+    # plain and Halpern), the fast profile's routing and accel='restart',
+    # each path driven once through solve() with the launch counts set to
+    # 0 just before it. The direct engine's cache build (spd_cache: A^T A,
+    # then the Newton-Schulz inverse in f32) and its loop are timed
+    # inside the solve, the card synchronized around each
+    from totsu_tpu_torch.solver import conic as tconic
+    from totsu_tpu_torch.solver import direct as tdirect
+    p_fast = tt.SolverParam(profile="fast", eps_acc=1e-3, max_iter=200_000)
+    p_fast_tight = dataclasses.replace(p_fast, eps_acc=1e-4)
+    p_golden = tt.SolverParam(max_iter=100_000, method="direct")
+    p_direct = tt.SolverParam(method="direct", accel="halpern",
+                              check_period=20, eps_acc=1e-3,
+                              max_iter=200_000)
+    p_restart = dataclasses.replace(p_full, accel="restart")
+    golden_cone = tt.ConeLayout([tt.rpos(3)])
+    c3, a3, b3 = make_lp(4000)
+    c3t, a3t, b3t = interop.problem_from_numpy(c3, a3, b3, device=dev,
+                                               dtype=f32)
+    lp3_cone = tt.ConeLayout([tt.rpos(a3.shape[0])])
+    slice_paths = {
+        "golden LP f64, direct":
+            lambda: tt.solve(c, a, b, golden_cone, p_golden),
+        "LP n=1000, fast profile":
+            lambda: tt.solve(c1t, a1t, b1t, lp_cone, p_fast),
+        "LP n=4000, fast profile":
+            lambda: tt.solve(c3t, a3t, b3t, lp3_cone, p_fast),
+        "logistic regression m=1000 n=20, fast profile":
+            lambda: tt.solve(c4t, a4t, b4t, lr_cone, p_fast),
+        "GP n=100, fast profile": lambda: gprob.solve(p_fast_tight),
+        "growth portfolio S=64 n=50, fast profile":
+            lambda: tt.solve(c6t, a6t, b6t, gr_cone, p_fast_tight),
+        "LP n=100, fast profile":
+            lambda: tt.solve(c2t, a2t, b2t, lp2_cone, p_fast),
+        "QP n=50, fast profile": lambda: qprob.solve(p_fast),
+        "LP n=100, direct Halpern":
+            lambda: tt.solve(c2t, a2t, b2t, lp2_cone, p_direct),
+        "QP n=50, direct Halpern": lambda: qprob.solve(p_direct),
+        "LP n=100, restart, host loop":
+            lambda: tt.solve(c2t, a2t, b2t, lp2_cone, p_restart),
+    }
+    spans = []
+    real_direct = time_calls(tdirect, ("spd_cache", "newton_schulz_inverse",
+                                       "_run_halpern_dr", "_run_plain"),
+                             spans)
+    try:
+        slice_runs = drive(slice_paths, kernels, spans)
+
+        def direct_times(sp):
+            """(cache build ms, its Newton-Schulz ms and steps, loop ms)"""
+            caches = [out for name, _, out in sp if name == "spd_cache"]
+            check(len(caches) == 1, f"{len(caches)} cache builds in a solve")
+            return (span_ms(sp, "spd_cache"),
+                    span_ms(sp, "newton_schulz_inverse"), caches[0].ns_steps,
+                    span_ms(sp, "_run_halpern_dr") + span_ms(sp, "_run_plain"))
+
+        def fmt_direct(wall, sp):
+            build, ns, steps, loop = direct_times(sp)
+            return (f"time to solution {1e3 * wall:.1f} ms: cache build "
+                    f"{build:.1f} ms (A^T A {build - ns:.1f} ms, "
+                    f"Newton-Schulz {ns:.1f} ms in {steps} steps), loop "
+                    f"{loop:.1f} ms")
+
+        def rel_obj(got, want):
+            return abs(got - want) / max(1.0, abs(want))
+
+        def objective(cvec, res):
+            cv = cvec if isinstance(cvec, np.ndarray) else cvec.cpu().numpy()
+            return float(np.dot(cv.astype(np.float64),
+                                res.x.double().cpu().numpy()))
+
+        # ---- phase 11: the golden LP in f64 through method='direct' on
+        # the card (Cholesky by cuSOLVER): x within 1e-4 of (2, 2) in
+        # under 100 iterations, as many as the same call on the CPU
+        r11, wall11, cnt11, _ = slice_runs["golden LP f64, direct"]
+        x11 = r11.x.cpu().numpy()
+        r11_cpu = tt.solve(c.cpu(), a.cpu(), b.cpu(), golden_cone, p_golden)
+        check(np.abs(x11 - 2.0).max() <= 1e-4 and r11.iters < 100,
+              f"golden LP direct: x = {x11.tolist()}, {r11.iters} iterations")
+        check(r11.iters == r11_cpu.iters, f"golden LP direct: {r11.iters} "
+              f"iterations on the card, {r11_cpu.iters} on the CPU")
+        print(f"phase 11 golden LP f64, method='direct': {r11.iters} "
+              f"iterations (CPU {r11_cpu.iters}), x = {x11.tolist()}, "
+              f"{1e3 * wall11:.1f} ms, launches {cnt11}", flush=True)
+
+        # ---- phase 12: the n=1000 benchmark LP under profile='fast' (the
+        # reference bench's headline): the direct engine with Halpern,
+        # objective within 5e-3 of HiGHS; a repeat is bitwise equal
+        p12 = tconic._resolve_fast_profile(p_fast, tt.DenseOp(a1t), lp_cone)
+        check((p12.method, p12.accel, p12.check_period)
+              == ("direct", "halpern", 20), f"n=1000 LP fast profile: {p12}")
+        r12, wall12, cnt12, sp12 = slice_runs["LP n=1000, fast profile"]
+        check(r12.converged, f"n=1000 LP fast profile status {r12.status}")
+        obj12 = objective(c1, r12)
+        rel12 = rel_obj(obj12, hi.fun)
+        check(rel12 <= 5e-3, f"n=1000 LP fast profile objective {obj12} vs "
+              f"HiGHS {hi.fun} (rel {rel12:.3e})")
+        spans.clear()
+        r12b, wall12b = timed(lambda: tt.solve(c1t, a1t, b1t, lp_cone,
+                                               p_fast))
+        sp12b = list(spans)
+        check(r12b.iters == r12.iters and torch.equal(r12b.x, r12.x),
+              f"n=1000 LP fast profile repeat: {r12b.iters} iterations "
+              f"(first {r12.iters}), x bitwise equal "
+              f"{torch.equal(r12b.x, r12.x)}")
+        print(f"phase 12 n=1000 LP (A 4000x1000 f32), profile='fast' -> "
+              f"method={p12.method!r} accel={p12.accel!r} check_period="
+              f"{p12.check_period}: CONVERGED in {r12.iters} iterations; "
+              f"{fmt_direct(wall12, sp12)}; repeat {fmt_direct(wall12b, sp12b)}"
+              f", same iterations, bitwise-equal x; objective {obj12:.6f} "
+              f"vs HiGHS {hi.fun:.6f} (rel {rel12:.2e}); launches {cnt12}",
+              flush=True)
+
+        # ---- phase 13: the n=4000 LP (A 16000x4000 f32, 256 MB) under
+        # profile='fast': CONVERGED, and the residuals recomputed on the
+        # host in f64 from the returned x and y each within 2e-3
+        r13, wall13, cnt13, sp13 = slice_runs["LP n=4000, fast profile"]
+        check(r13.converged, f"n=4000 LP fast profile status {r13.status}")
+        kkt13 = lp_kkt(c3, a3, b3, r13.x.cpu().numpy(), r13.y.cpu().numpy())
+        check(max(kkt13) <= 2e-3, "n=4000 LP residuals (primal, dual, gap) "
+              f"{kkt13}")
+        print(f"phase 13 n=4000 LP (A 16000x4000 f32), profile='fast': "
+              f"CONVERGED in {r13.iters} iterations; "
+              f"{fmt_direct(wall13, sp13)}; host f64 residuals primal "
+              f"{kkt13[0]:.2e}, dual {kkt13[1]:.2e}, gap {kkt13[2]:.2e}; "
+              f"launches {cnt13}", flush=True)
+
+        # ---- phase 14: the exp/pow problems under profile='fast' go to the
+        # direct engine: the logistic regression within 5e-3 of L-BFGS-B,
+        # the GP and the growth portfolio within 5e-3 of SLSQP; kernel B
+        # in every projection of the loop, dual_matvec in every check
+        for prob_a, cone_ in ((a4t, lr_cone), (gprob.a.a, gprob.cone),
+                              (a6t, gr_cone)):
+            p14 = tconic._resolve_fast_profile(p_fast, tt.DenseOp(prob_a),
+                                               cone_)
+            check(p14.method == "direct", f"exp/pow fast profile: {p14}")
+        r14, wall14, cnt14, sp14 = slice_runs[
+            "logistic regression m=1000 n=20, fast profile"]
+        check(r14.converged, f"logistic regression fast profile status "
+              f"{r14.status}")
+        lr_obj14 = logreg_objective(lr_x, lr_y,
+                                    r14.x[:lr_n].double().cpu().numpy(), lam)
+        lr_rel14 = abs(lr_obj14 - lr_ref) / abs(lr_ref)
+        check(lr_rel14 <= 5e-3, f"logistic regression fast profile "
+              f"objective {lr_obj14} vs L-BFGS-B {lr_ref} "
+              f"(rel {lr_rel14:.3e})")
+        check(cnt14["cone_proj"] >= r14.iters
+              and cnt14["dual_matvec"] >= r14.iters // 20,
+              f"logistic regression fast profile launches {cnt14} for "
+              f"{r14.iters} iterations")
+        r_gpf, wall_gpf, cnt_gpf, _ = slice_runs["GP n=100, fast profile"]
+        check(r_gpf.converged, f"GP fast profile status {r_gpf.status}")
+        xgf = np.exp(r_gpf.x[:gn].double().cpu().numpy())
+        posy_f = [float(np.sum(ci * np.prod(xgf[None, :] ** ai, axis=1)))
+                  for ci, ai in zip(gp_c, gp_a)]
+        gp_rel_f = abs(posy_f[0] - gp_ref) / gp_ref
+        check(gp_rel_f <= 5e-3 and max(posy_f[1:]) <= 1.01,
+              f"GP fast profile objective {posy_f[0]} vs SLSQP {gp_ref} "
+              f"(rel {gp_rel_f:.3e}), max f_i {max(posy_f[1:]):.4f}")
+        r_grf, wall_grf, cnt_grf, _ = slice_runs[
+            "growth portfolio S=64 n=50, fast profile"]
+        check(r_grf.converged, f"growth fast profile status {r_grf.status}")
+        growth_f = float(r_grf.x[gr_root])
+        gr_rel_f = abs(growth_f - gr_ref) / gr_ref
+        check(gr_rel_f <= 5e-3, f"growth fast profile {growth_f} vs SLSQP "
+              f"{gr_ref} (rel {gr_rel_f:.3e})")
+        # the caller turns TF32 on: the engine still runs every product in
+        # full f32 (the same iterations, a bitwise-equal x) and gives the
+        # caller's setting back
+        torch.set_float32_matmul_precision("high")
+        try:
+            r_grf2 = tt.solve(c6t, a6t, b6t, gr_cone, p_fast_tight)
+            caller = torch.get_float32_matmul_precision()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        check(caller == "high", f"caller's matmul precision reads {caller!r} "
+              "after the solve, not 'high'")
+        check(r_grf2.iters == r_grf.iters and torch.equal(r_grf2.x, r_grf.x),
+              f"growth fast profile under TF32: {r_grf2.iters} iterations "
+              f"(first {r_grf.iters}), x bitwise equal "
+              f"{torch.equal(r_grf2.x, r_grf.x)}")
+        print(f"phase 14 exp/pow on profile='fast' (the direct engine): "
+              f"logistic regression CONVERGED in {r14.iters} iterations, "
+              f"{fmt_direct(wall14, sp14)} (phase 6's host-loop pdhg: "
+              f"{r_lr.iters} iterations, {wall_lr:.3f} s); objective "
+              f"{lr_obj14:.6f} vs L-BFGS-B {lr_ref:.6f} (rel {lr_rel14:.2e});"
+              f" launches {cnt14}, per iteration "
+              f"{cnt14['cone_proj'] / r14.iters:.3f} cone_proj and "
+              f"{cnt14['dual_matvec'] / r14.iters:.3f} dual_matvec. GP "
+              f"{r_gpf.iters} iterations, {wall_gpf:.3f} s, objective "
+              f"{posy_f[0]:.6f} vs SLSQP {gp_ref:.6f} (rel {gp_rel_f:.2e}); "
+              f"growth portfolio {r_grf.iters} iterations, {wall_grf:.3f} s, "
+              f"{growth_f:.6f} vs SLSQP {gr_ref:.6f} (rel {gr_rel_f:.2e}); "
+              "repeat under set_float32_matmul_precision('high'): same "
+              f"iterations, bitwise-equal x, caller's setting {caller!r}",
+              flush=True)
+
+        # ---- phase 15: the fast profile's mega-first branch on the card:
+        # the n=100 LP and the n=50 QP take the megakernel; the same two
+        # problems through method='direct', accel='halpern' converge to
+        # objectives within 5e-3. The thresholds are the JAX package's TPU
+        # crossovers; this reads both sides on the H100
+        line15 = []
+        for what, cvec, prob_a, cone_ in (
+                ("LP n=100", c2t, a2t, lp2_cone),
+                ("QP n=50", qprob.c, qprob.a.a, qprob.cone)):
+            p15 = tconic._resolve_fast_profile(p_fast, tt.DenseOp(prob_a),
+                                               cone_)
+            rm, wm, cm, _ = slice_runs[f"{what}, fast profile"]
+            rd, wd, cd, spd = slice_runs[f"{what}, direct Halpern"]
+            check(p15.method == "pdhg" and p15.kernel == "auto"
+                  and cm["megakernel"] == 1,
+                  f"{what} fast profile: {p15}, launches {cm}")
+            check(rm.converged and rd.converged,
+                  f"{what}: status fast {rm.status}, direct {rd.status}")
+            om, od = objective(cvec, rm), objective(cvec, rd)
+            check(rel_obj(om, od) <= 5e-3, f"{what}: objective fast "
+                  f"(megakernel) {om} vs direct {od}")
+            m_, n_ = prob_a.shape
+            line15.append(
+                f"{what} (plan {mk.device_plan(m_, n_, cone_, dev)[0].describe()}"
+                f"): megakernel {rm.iters} iterations, {1e3 * wm:.1f} ms; "
+                f"direct Halpern {rd.iters} iterations, {fmt_direct(wd, spd)};"
+                f" objectives {om:.6f} / {od:.6f} "
+                f"(rel {rel_obj(om, od):.2e})")
+        print("phase 15 fast profile mega-first: " + "; ".join(line15),
+              flush=True)
+
+        # ---- phase 16: accel='restart' on the n=100 LP, host loop, f32:
+        # CONVERGED, objective within 5e-3 of phase 5's Halpern host loop
+        r16, wall16, cnt16, _ = slice_runs["LP n=100, restart, host loop"]
+        check(r16.converged, f"restart status {r16.status}")
+        o16, o5 = objective(c2, r16), objective(c2, r_lp_x)
+        check(rel_obj(o16, o5) <= 5e-3, f"restart objective {o16} vs "
+              f"phase 5's {o5}")
+        print(f"phase 16 accel='restart', n=100 LP host loop: CONVERGED in "
+              f"{r16.iters} iterations, {wall16:.3f} s (phase 5's Halpern "
+              f"host loop: {r_lp_x.iters} iterations, {wall_lp_x:.3f} s); "
+              f"objective {o16:.6f} vs {o5:.6f} (rel {rel_obj(o16, o5):.2e});"
+              f" launches {cnt16}", flush=True)
+    finally:
+        for name, fn in real_direct.items():
+            setattr(tdirect, name, fn)
+    for k in kernels:
+        main_counts[k] += sum(r[2][k] for r in slice_runs.values())
+
+    # ---- phase 16b: where the direct engine's time goes, 200 iterations
+    # of its loop alone (the cache build left out) under torch.profiler,
+    # on the n=1000 and n=4000 LPs and the logistic regression under
+    # profile='fast'
+    p_fast_prof = dataclasses.replace(p_fast, max_iter=200)
+    real_loop = tdirect._run_halpern_dr
+    for what, fn in (
+            ("LP n=1000", lambda: tt.solve_jit(c1t, a1t, b1t, lp_cone,
+                                               p_fast_prof)),
+            ("LP n=4000", lambda: tt.solve_jit(c3t, a3t, b3t, lp3_cone,
+                                               p_fast_prof)),
+            ("logistic regression", lambda: tt.solve_jit(
+                c4t, a4t, b4t, lr_cone, p_fast_prof))):
+        stats, out = [], []
+
+        def profiled_loop(*args, **kwargs):
+            stats.append(profile_loop(
+                lambda: out.append(real_loop(*args, **kwargs)), 200))
+            return out[0]
+
+        tdirect._run_halpern_dr = profiled_loop
+        try:
+            fn()
+        finally:
+            tdirect._run_halpern_dr = real_loop
+        wall_us, busy_us, nlaunch, top = stats[0]
+        print(f"phase 16b profile {what}, the direct engine's loop "
+              f"(profile='fast'), 200 iterations: {wall_us:.1f} us wall and "
+              f"{busy_us:.1f} us device-busy per iteration "
+              f"({100 * busy_us / wall_us:.1f}% busy), {nlaunch:.1f} kernel "
+              "launches per iteration; top kernels (us per iteration) "
+              + ", ".join(f"{k} {t:.1f}" for k, t in top), flush=True)
 
     primal = cp_main[False]
     record = {"kernels": [

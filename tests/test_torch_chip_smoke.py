@@ -123,6 +123,70 @@ def test_bound_arithmetic():
     assert by == "operations" and abs(ms - 1.0) < 1e-12
 
 
+def test_make_lp_is_bench_make_lp():
+    # phase 13's n=4000 LP comes from the benchmark's generator: the same
+    # arrays at a small n (A (4n, n): 2n random rows and the box)
+    sys.path.insert(0, cs.ROOT)
+    import bench
+    for n in (5, 12):
+        for got, want in zip(cs.make_lp(n), bench.make_lp(n)):
+            assert got.dtype == want.dtype == np.float32
+            np.testing.assert_array_equal(got, want)
+        assert cs.make_lp(n)[1].shape == (4 * n, n)
+
+
+def test_lp_kkt_passes_the_solution_and_fails_a_perturbed_one():
+    # the golden LP: x* = (2, 2), y* = (4/15, 1/15, 0) (A^T y* = -c,
+    # b^T y* = 2 = -c^T x*); phase 13's bound is 2e-3 on each residual
+    c = np.array([-1.0, 0.0])
+    a = np.array([[4.0, -1.0], [-1.0, 4.0], [-1.0, -1.0]])
+    b = np.array([6.0, 6.0, 1.0])
+    x, y = np.array([2.0, 2.0]), np.array([4.0, 1.0, 0.0]) / 15.0
+    assert max(cs.lp_kkt(c, a, b, x, y)) <= 1e-15
+    pri, dual, gap = cs.lp_kkt(c, a, b, x + [0.1, 0.0], y)
+    assert pri > 2e-3 and gap > 2e-3 and dual <= 1e-15
+    assert cs.lp_kkt(c, a, b, x, y - [0.0, 0.0, 0.01])[1] > 2e-3
+    assert cs.lp_kkt(c, a, b, x, y * 1.01)[1] > 2e-3
+
+
+def test_drive_counts_each_path_from_zero():
+    kern = type("K", (), {"launches": 7})()
+
+    def run(k):
+        def go():
+            kern.launches += k
+            spans.append(("step", 0.0, k))
+            return type("R", (), {"status": 1, "iters": k})()
+        return go
+
+    spans = ["stale"]
+    torch_sync = torch.cuda.synchronize
+    torch.cuda.synchronize = lambda *a, **kw: None
+    try:
+        runs = cs.drive({"one": run(1), "two": run(2)}, {"k": kern}, spans)
+    finally:
+        torch.cuda.synchronize = torch_sync
+    assert runs["one"][2] == {"k": 1} and runs["two"][2] == {"k": 2}
+    assert runs["two"][3] == [("step", 0.0, 2)]
+
+
+def test_time_calls_records_and_restores():
+    import types
+    mod = types.SimpleNamespace(f=lambda x: 2 * x)
+    spans = []
+    torch_sync = torch.cuda.synchronize
+    torch.cuda.synchronize = lambda *a, **kw: None
+    try:
+        real = cs.time_calls(mod, ("f",), spans)
+        assert mod.f(3) == 6
+    finally:
+        torch.cuda.synchronize = torch_sync
+    assert [(n, out) for n, _, out in spans] == [("f", 6)]
+    assert cs.span_ms(spans, "f") >= 0.0 and cs.span_ms(spans, "g") == 0.0
+    mod.f = real["f"]
+    assert mod.f(2) == 4
+
+
 def test_smoke_refuses_without_cuda(tmp_path):
     # no card: a non-zero exit and no result line; alone in a directory
     # (without the repository): the same

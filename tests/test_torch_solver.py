@@ -116,7 +116,7 @@ def test_certificates_match_jax(g, h, status):
     assert rt.iters == int(rj.iters)
 
 
-@pytest.mark.parametrize("accel", ["", "halpern"])
+@pytest.mark.parametrize("accel", ["", "halpern", "restart"])
 def test_warm_start_at_solution_stops_at_zero(accel):
     c, a, b, m = small_lp(seed=2)
     pj = jt.SolverParam(max_iter=60_000, eps_acc=1e-3, check_period=10,
@@ -151,16 +151,15 @@ def test_dual_matvec_counts_only_launches():
 
 
 @pytest.mark.parametrize("kw,solve_kw", [
-    (dict(method="direct"), {}),
-    (dict(accel="restart"), {}),
-    (dict(profile="fast"), {}),
+    (dict(method="direct", return_state=True), {}),
+    (dict(profile="fast"), dict(row_sharding=object())),
     (dict(return_state=True), {}),
     (dict(log_period=10), {}),
     ({}, dict(chunk_iters=10)),
     ({}, dict(polish=True)),
     ({}, dict(row_sharding=object())),
-], ids=["direct", "restart", "fast", "return_state", "log_period",
-        "chunk_iters", "polish", "row_sharding"])
+], ids=["direct_return_state", "fast_row_sharding", "return_state",
+        "log_period", "chunk_iters", "polish", "row_sharding"])
 def test_unported_features_raise(kw, solve_kw):
     c, a, b, m = small_lp(seed=5)
     ct, at, bt = interop.problem_from_numpy(c, a, b, device="cpu")

@@ -21,8 +21,13 @@ is not a tensor yet (numpy, lists) goes to the CUDA card unless the caller
 passes ``device=``; without a card that raises. On a CPU tensor each
 kernel wrapper runs its plain PyTorch version instead.
 
-Not ported yet (ROADMAP.md): the direct engine, ``accel='restart'``,
-resume / checkpoints, the fast profile, structured operators, the PSD /
+Besides pdhg (plain, Halpern and restarted averaging), ``method='direct'``
+runs the dense direct engine (Douglas-Rachford on the embedding with a
+cached solve of I + A^T A, plain or Halpern), and ``profile='fast'``
+routes a problem as the JAX package does.
+
+Not ported yet (ROADMAP.md): resume / checkpoints and chunked solves, the
+indirect engine and structured operators, progress logging, the PSD /
 custom projections, the QCQP / SOCP / SDP reductions, polish, diff,
 batching and distribution.
 """

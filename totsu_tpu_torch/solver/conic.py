@@ -20,6 +20,9 @@ The JAX ``lax.while_loop`` becomes a host loop: ``check_period`` updates,
 one termination check, then one ``.item()``-style read of the status —
 the loop's only host sync. ``kernel='mega'`` runs the whole loop instead
 in one CUDA kernel launch (``ops/kernels/megakernel.py``).
+``method='direct'`` hands the solve to the direct engine
+(``solver/direct.py``); ``profile='fast'`` picks engine and knobs first
+(:func:`_resolve_fast_profile`).
 """
 
 import dataclasses
@@ -28,7 +31,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
-from totsu_tpu_torch.solver.cone import ConeLayout
+from totsu_tpu_torch.solver.cone import ConeLayout, RSOC, EXP, POW, PSD
 from totsu_tpu_torch.solver.operator import LinOp, DenseOp, as_linop
 from totsu_tpu_torch.solver.params import (SolverParam, SolverStatus,
                                            SolverError, effective_eps_inf)
@@ -216,6 +219,25 @@ def _sq_dist(a, b):
     return sum(torch.sum((x - y) ** 2) for x, y in zip(a, b))
 
 
+def _np_dtype(dtype: torch.dtype) -> np.dtype:
+    return np.dtype(str(dtype).replace("torch.", ""))
+
+
+def _halpern_weights(ndt: np.dtype, ke: int):
+    """(w, 1 - w) with w = (ke + 1) / (ke + 2), rounded to the iterate
+    dtype ``ndt`` as the device loop of the JAX package computes them."""
+    w = ndt.type(ke + 1) / ndt.type(ke + 2)
+    return float(w), float(ndt.type(1.0) - w)
+
+
+def _artificial_restart(ndt: np.dtype, ke: int, k: int,
+                        check_period: int) -> bool:
+    """The epoch has run past 36% of all iterations (at least four check
+    periods): the int ``ke`` compared in the iterate dtype ``ndt``."""
+    return bool(ndt.type(ke) >= max(ndt.type(0.36) * ndt.type(k),
+                                    ndt.type(4.0 * check_period)))
+
+
 def _run_halpern(update, check, u0, v0, k: int, status: int, crits,
                  cap: int, check_period: int):
     """Restarted reflected-Halpern PDHG (rHPDHG; Lu & Yang 2024):
@@ -229,7 +251,7 @@ def _run_halpern(update, check, u0, v0, k: int, status: int, crits,
     computed on the device in the iterate dtype and read to the host with
     the status in one transfer per check."""
     dtype = u0[0].dtype
-    ndt = np.dtype(str(dtype).replace("torch.", ""))
+    ndt = _np_dtype(dtype)
     u, v, au, av = u0, v0, u0, v0
     inf = torch.tensor(float("inf"), dtype=dtype, device=u0[0].device)
     fp_rst, fp_last = inf, inf
@@ -237,10 +259,7 @@ def _run_halpern(update, check, u0, v0, k: int, status: int, crits,
     while status == SolverStatus.RUNNING and k < cap:
         for _ in range(check_period):
             tu, tv = update(u, v)
-            # the Halpern weights in the iterate dtype, as the device
-            # loop of the JAX package computes them
-            w = ndt.type(ke + 1) / ndt.type(ke + 2)
-            w, wa = float(w), float(ndt.type(1.0) - w)
+            w, wa = _halpern_weights(ndt, ke)
             u = tuple(w * (2.0 * t - i) + wa * a for t, i, a in zip(tu, u, au))
             v = tuple(w * (2.0 * t - i) + wa * a for t, i, a in zip(tv, v, av))
             ke += 1
@@ -248,10 +267,9 @@ def _run_halpern(update, check, u0, v0, k: int, status: int, crits,
         tu, tv = update(u, v)
         fp = torch.sqrt(_sq_dist(tu, u) + _sq_dist(tv, v))
         st, crits = check(tu, tv, k)
-        artificial = bool(ndt.type(ke) >= max(ndt.type(0.36) * ndt.type(k),
-                                              ndt.type(4.0 * check_period)))
         restart = (fp <= 0.2 * fp_rst) \
-            | ((fp <= 0.8 * fp_rst) & (fp > fp_last)) | artificial
+            | ((fp <= 0.8 * fp_rst) & (fp > fp_last)) \
+            | _artificial_restart(ndt, ke, k, check_period)
         status, restart = (int(x) for x in
                            torch.stack([st, restart.to(torch.int32)]).tolist())
         if restart or status != SolverStatus.RUNNING:
@@ -261,6 +279,64 @@ def _run_halpern(update, check, u0, v0, k: int, status: int, crits,
             ke = 0
             fp_rst = fp
         fp_last = fp
+    return u, v, k, status, crits
+
+
+def _run_restarted(update, check, u0, v0, k: int, status: int, crits,
+                   cap: int, check_period: int):
+    """PDLP-style restarted averaging (Applegate et al. 2021, the scheme
+    behind cuPDLP): the plain update, with the running average of the
+    epoch's iterates. Each check evaluates the criteria at the current
+    iterate and at the average and takes the one with the smaller
+    residual (the largest of its three relative KKT criteria) as the
+    candidate; the
+    epoch restarts from the candidate on sufficient decay (x0.2 of the
+    residual at the last restart), on necessary decay (x0.8) without
+    progress since the last check, or past 36% of all iterations.
+    Averages of iterates stay inside every cone, so the criteria keep
+    their meaning there. The statuses of both points, the choice and the
+    restart decision reach the host in one transfer per check."""
+    dtype = u0[0].dtype
+    ndt = _np_dtype(dtype)
+    u, v = u0, v0
+
+    def zeros(seg):
+        return tuple(torch.zeros_like(x) for x in seg)
+
+    su, sv = zeros(u0), zeros(v0)
+    inf = torch.tensor(float("inf"), dtype=dtype, device=u0[0].device)
+    res_rst, res_last = inf, inf
+    ke = 0
+    while status == SolverStatus.RUNNING and k < cap:
+        for _ in range(check_period):
+            u, v = update(u, v)
+            su = tuple(s + x for s, x in zip(su, u))
+            sv = tuple(s + x for s, x in zip(sv, v))
+        k += check_period
+        ke += check_period
+        count = float(ndt.type(ke))
+        ub = tuple(s / count for s in su)
+        vb = tuple(s / count for s in sv)
+        st_c, cr_c = check(u, v, k)
+        st_a, cr_a = check(ub, vb, k)
+        res_c = cr_c[:3].max()
+        res_a = cr_a[:3].max()
+        use_avg = res_a < res_c
+        res = torch.minimum(res_a, res_c)
+        restart = (res <= 0.2 * res_rst) \
+            | ((res <= 0.8 * res_rst) & (res > res_last)) \
+            | _artificial_restart(ndt, ke, k, check_period)
+        st_c, st_a, use_avg, restart = (int(x) for x in torch.stack([
+            st_c, st_a, use_avg.to(torch.int32),
+            restart.to(torch.int32)]).tolist())
+        status, crits = (st_a, cr_a) if use_avg else (st_c, cr_c)
+        if (restart or status != SolverStatus.RUNNING) and use_avg:
+            u, v = ub, vb
+        if restart:
+            su, sv = zeros(u0), zeros(v0)
+            ke = 0
+            res_rst = res
+        res_last = res
     return u, v, k, status, crits
 
 
@@ -275,28 +351,20 @@ def run_loop(update, check, u0, v0, *, cap: int, check_period: int,
     else:
         status = int(SolverStatus.RUNNING)
         crits = torch.full((5,), float("inf"), dtype=dtype, device=device)
-    run = {"": _run_plain, "halpern": _run_halpern}.get(accel)
+    run = {"": _run_plain, "halpern": _run_halpern,
+           "restart": _run_restarted}.get(accel)
     if run is None:
-        if accel == "restart":
-            raise _not_ported("accel='restart'", "7")
         raise ValueError(f"unknown accel {accel!r}")
     return run(update, check, u0, v0, 0, status, crits, cap, check_period)
 
 
 def _check_supported(param: SolverParam, resume_state, row_sharding):
     """Raise for every feature of the JAX solve_jit this slice does not
-    port, naming its ROADMAP item; never fall back silently."""
-    if param.profile == "fast":
-        raise _not_ported("profile='fast'", "9")
-    if param.profile != "reference":
-        raise ValueError(f"unknown profile {param.profile!r}")
-    if param.method == "direct":
-        raise _not_ported("method='direct'", "8")
-    if param.method != "pdhg":
+    port, naming its ROADMAP item; never fall back silently. Runs after
+    the fast profile is resolved."""
+    if param.method not in ("pdhg", "direct"):
         raise ValueError(f"unknown method {param.method!r}")
-    if param.accel == "restart":
-        raise _not_ported("accel='restart'", "7")
-    if param.accel not in ("", "halpern"):
+    if param.accel not in ("", "halpern", "restart"):
         raise ValueError(f"unknown accel {param.accel!r}")
     if resume_state is not None:
         raise _not_ported("resume_state", "5")
@@ -306,6 +374,80 @@ def _check_supported(param: SolverParam, resume_state, row_sharding):
         raise _not_ported("row_sharding", "14")
     if param.log_period > 0:
         raise _not_ported("log_period > 0", "9")
+
+
+def _on_card(a_op: LinOp) -> bool:
+    """Whether the solve runs on a CUDA device: the fast profile asks this
+    where the JAX package asks whether it runs on a TPU."""
+    return isinstance(a_op, DenseOp) and a_op.a.device.type == "cuda"
+
+
+def _resolve_fast_profile(param: SolverParam, a_op: LinOp, cone: ConeLayout,
+                          row_sharding=None) -> SolverParam:
+    """Resolve ``profile='fast'`` into concrete parameters, field for
+    field as the JAX package does: every knob still at its dataclass
+    default gets the fast setting, explicitly set fields win.
+
+    * small dense problems inside the megakernel's envelope, on the card,
+      stay on pdhg with ``kernel='auto'`` (mega-first);
+    * other dense problems with n <= 8192 go to the direct engine with
+      ``accel='halpern'``;
+    * structured operators go to the direct engine too (its indirect
+      mode; ROADMAP item 10), PSD layouts excepted;
+    * everything else: pdhg with ``accel='halpern'``, ``normalize`` and,
+      for dense A, ``equil_iters=10``.
+
+    A ``row_sharding`` keeps the solve on pdhg, the engine that honours
+    mesh constraints. The crossovers (mega-first at n <= 300, n <= 200
+    with RSOC blocks and never with exp/pow blocks; the direct engine up
+    to n = 8192) are the JAX package's TPU measurements, unmeasured on the
+    H100 (ROADMAP item 17)."""
+    dense = isinstance(a_op, DenseOp)
+    m, n = a_op.shape
+    updates = {"profile": "reference"}
+    if param.check_period == 1:
+        updates["check_period"] = 20
+    if param.kernel == "":
+        updates["kernel"] = "auto"
+    if any(f.kind in (EXP, POW) for f in cone.factors):
+        mega_n_max = 0
+    else:
+        mega_n_max = 200 if any(f.kind == RSOC for f in cone.factors) \
+            else 300
+    mega_first = False
+    if dense and param.method == "pdhg" and param.matvec_dtype is None \
+            and param.relax == 1.0 and n <= mega_n_max \
+            and param.log_period == 0:
+        from totsu_tpu_torch.ops.kernels import megakernel as mk
+        mega_first = (
+            updates.get("kernel", param.kernel) in ("auto", "mega")
+            and a_op.a.dtype == torch.float32
+            and mk.supported(cone) and mk.fits(m, n, cone)
+            and _on_card(a_op))
+    if row_sharding is not None:
+        if param.accel == "" and param.relax == 1.0:
+            updates["accel"] = "halpern"
+        if param.normalize is None:
+            updates["normalize"] = True
+    elif dense and n <= 8192 and not mega_first and param.method == "pdhg" \
+            and param.matvec_dtype is None and param.relax == 1.0:
+        updates["method"] = "direct"
+        if param.accel == "":
+            updates["accel"] = "halpern"
+    elif not dense and param.method == "pdhg" \
+            and param.matvec_dtype is None and param.relax == 1.0 \
+            and not any(f.kind == PSD for f in cone.factors):
+        updates["method"] = "direct"
+        if param.accel == "":
+            updates["accel"] = "halpern"
+    else:
+        if param.accel == "" and param.relax == 1.0:
+            updates["accel"] = "halpern"
+        if param.normalize is None:
+            updates["normalize"] = True
+        if dense and param.equil_iters is None:
+            updates["equil_iters"] = 10
+    return dataclasses.replace(param, **updates)
 
 
 def _as_tensor(x, device) -> torch.Tensor:
@@ -339,15 +481,32 @@ def solve_jit(
     ``warm_start`` an optional (x0, y0) primal/dual seed. The solve runs
     on A's device: an A that is not a tensor goes to ``device``, else to
     the CUDA card (a tensor A on another device than ``device`` raises),
-    and a ``c`` or ``b`` that is not a tensor follows A.
+    and a ``c`` or ``b`` that is not a tensor follows A. ``profile='fast'``
+    is resolved first; ``method='direct'`` then runs the direct engine.
     """
-    _check_supported(param, resume_state, row_sharding)
     a_op = as_linop(a, device)
+    if param.profile == "fast":
+        param = _resolve_fast_profile(param, a_op, cone, row_sharding)
+    elif param.profile != "reference":
+        raise ValueError(f"unknown profile {param.profile!r}")
+    if param.method == "direct":
+        if param.matvec_dtype is not None:
+            raise ValueError("matvec_dtype is a pdhg-engine feature")
+        if row_sharding is not None:
+            raise ValueError(
+                "method='direct' does not honor row_sharding (mesh "
+                "constraints are a pdhg-engine feature); use "
+                "method='pdhg', or drop the sharding")
+    _check_supported(param, resume_state, row_sharding)
     if not isinstance(a_op, DenseOp):
         raise _not_ported("structured operators", "10")
     device = a_op.a.device
     c = _as_tensor(c, device)
     b = _as_tensor(b, device)
+    if param.method == "direct":
+        from totsu_tpu_torch.solver.direct import solve_direct_jit
+        return solve_direct_jit(c, a_op, b, cone, param,
+                                warm_start=warm_start)
     dtype = torch.promote_types(c.dtype, b.dtype)
     c = c.to(dtype)
     b = b.to(dtype)

@@ -1,0 +1,337 @@
+"""Direct (SCS-style) solve of the homogeneous self-dual embedding.
+
+Port of the dense half of ``totsu_tpu.solver.direct``: Douglas-Rachford
+splitting (O'Donoghue et al., SCS) of the same embedding the pdhg engine
+iterates,
+
+    u~  <- (I + Q)^{-1} (u + v)            (cached linear solve)
+    u   <- Pi_C(u~ - v)                    (cone projection)
+    v   <- v - u~ + u
+
+with Q = [[0, A^T, c], [-A, 0, b], [-c^T, -b^T, 0]] and
+C = R^n x K* x R+ over u = (x, y, tau), one flat (n + m + 1) vector.
+Block elimination and a Sherman-Morrison correction on the (c, b) border
+reduce the (I + Q) solve to the SPD matrix M = I + A^T A:
+
+    M z1 = r1 - A^T r2,   z2 = r2 + A z1,
+    (I + Q) solve = M-solve + rank-1 correction with g = M^{-1} (c, b).
+
+M is factored once (:func:`spd_cache`): Cholesky in f64 (cuSOLVER on
+the card); in f32 a Newton-Schulz inverse, after which every solve takes
+two refinement steps, as in the JAX package. Every matrix product runs in
+full f32 (:func:`full_f32_matmul`): a TF32 resolvent breaks the firm
+nonexpansiveness of the DR map.
+
+The JAX ``lax.while_loop`` becomes a host loop, as in the pdhg engine:
+``check_period`` updates, one check (whose ``dual_matvec`` is kernel 1 on
+the card; exp/pow blocks of ``Pi_C`` run kernel B), one host read of the
+status. The indirect mode (CG on structured operators) waits for ROADMAP
+§1 item 10, resume state for item 5.
+"""
+
+import contextlib
+import dataclasses
+
+import torch
+
+from totsu_tpu_torch.solver.cone import ConeLayout
+from totsu_tpu_torch.solver.conic import (
+    SolveResult, _artificial_restart, _finish, _halpern_weights,
+    _make_check, _not_ported, _np_dtype, _run_plain)
+from totsu_tpu_torch.solver.operator import DenseOp
+from totsu_tpu_torch.solver.params import (SolverParam, SolverStatus,
+                                           effective_eps_inf)
+
+
+def _matmul(x, y):
+    """Every matrix product of the engine: A^T A, the Newton-Schulz
+    steps and the products of each solve."""
+    return torch.matmul(x, y)
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Full-f32 matrix products (no TF32) inside, whatever the caller set;
+    the caller's setting is put back on the way out, also on a raise.
+    The legacy ``allow_tf32`` flag is restored where the precision cannot
+    be read (a caller that mixed the legacy and the new API)."""
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        precision = torch.get_float32_matmul_precision()
+    except RuntimeError:
+        precision = None
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        if precision is not None:
+            torch.set_float32_matmul_precision(precision)
+        else:
+            torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+
+
+@dataclasses.dataclass(frozen=True)
+class SpdSolve:
+    """The cached solve of M = I + A^T A: its lower Cholesky factor
+    (f64), or its Newton-Schulz inverse and the steps that built it
+    (f32), after which every solve takes two refinement steps."""
+    factor: torch.Tensor
+    cholesky: bool
+    ns_steps: int
+
+    @property
+    def refine_steps(self) -> int:
+        return 0 if self.cholesky else 2
+
+    def apply_inv(self, r):
+        if self.cholesky:
+            return torch.cholesky_solve(r[:, None], self.factor)[:, 0]
+        return _matmul(self.factor, r)
+
+
+def newton_schulz_inverse(spd):
+    """(X, steps): X_{k+1} = X_k (2I - M X_k) from X_0 = I / ||M||_F
+    (which is at least lambda_max), while the residual ||I - X M||_F
+    falls, stays above 1e-7 and steps < 100; the last step taken is
+    kept (the JAX package's loop). Each step's stopping test is one host
+    read."""
+    n = spd.shape[0]
+    eye = torch.eye(n, dtype=spd.dtype, device=spd.device)
+    x = eye / torch.linalg.matrix_norm(spd)
+    res = torch.linalg.matrix_norm(eye - _matmul(x, spd))
+    res_prev = torch.full_like(res, float("inf"))
+    steps = 0
+    while steps < 100 and bool((res < res_prev) & (res > 1e-7)):
+        x = _matmul(x, 2.0 * eye - _matmul(spd, x))
+        res, res_prev = torch.linalg.matrix_norm(eye - _matmul(x, spd)), res
+        steps += 1
+    return x, steps
+
+
+def spd_cache(amat) -> SpdSolve:
+    """Factor M = I + A^T A for an (m, n) A: Cholesky in f64, else the
+    Newton-Schulz inverse with two refinement steps per solve."""
+    n = amat.shape[1]
+    spd = torch.eye(n, dtype=amat.dtype, device=amat.device) \
+        + _matmul(amat.T, amat)
+    if amat.dtype == torch.float64:
+        return SpdSolve(torch.linalg.cholesky(spd), True, 0)
+    prec, steps = newton_schulz_inverse(spd)
+    return SpdSolve(prec, False, steps)
+
+
+def _run_halpern_dr(t_map, pair, check, z0, k: int, status: int, crits,
+                    cap: int, check_period: int):
+    """Restarted Halpern iteration on the DR variable z = u~ - v,
+
+        z_{k+1} = (k+1)/(k+2) * (2 T(z_k) - z_k) + 1/(k+2) * z_anchor,
+
+    with T firmly nonexpansive in z. The epoch restarts (anchor <- T(z))
+    on sufficient decay (x0.2) or stalled necessary decay (x0.8) of the
+    fixed-point residual ||T(z) - z||, or past 36% of all iterations.
+    Termination is evaluated at the Moreau pair of T(z), projected and
+    feasible, so the statuses keep their certificate meaning. The restart
+    decision reaches the host with the status in one transfer per
+    check. Returns (z, k, status, crits)."""
+    dtype = z0.dtype
+    ndt = _np_dtype(dtype)
+    z = anchor = z0
+    inf = torch.tensor(float("inf"), dtype=dtype, device=z0.device)
+    fp_rst, fp_last = inf, inf
+    ke = 0
+    while status == SolverStatus.RUNNING and k < cap:
+        for _ in range(check_period):
+            tz = t_map(z)
+            w, wa = _halpern_weights(ndt, ke)
+            z = w * (2.0 * tz - z) + wa * anchor
+            ke += 1
+        k += check_period
+        tz = t_map(z)
+        fp = torch.linalg.vector_norm(tz - z)
+        st, crits = check(*pair(tz), k)
+        restart = (fp <= 0.2 * fp_rst) \
+            | ((fp <= 0.8 * fp_rst) & (fp > fp_last)) \
+            | _artificial_restart(ndt, ke, k, check_period)
+        status, restart = (int(x) for x in
+                           torch.stack([st, restart.to(torch.int32)]).tolist())
+        if restart or status != SolverStatus.RUNNING:
+            z = tz
+        if restart:
+            anchor = tz
+            ke = 0
+            fp_rst = fp
+        fp_last = fp
+    return z, k, status, crits
+
+
+def solve_direct_jit(c, a_op, b, cone: ConeLayout,
+                     param: SolverParam = SolverParam(), warm_start=None,
+                     resume_state=None) -> SolveResult:
+    """The direct-engine solve of ``solve_jit(method='direct')``: ``c``
+    (n,) and ``b`` (m,) tensors on the device of the dense operator
+    ``a_op``. Never raises on non-convergence; returns a status."""
+    if not isinstance(a_op, DenseOp):
+        raise _not_ported("the indirect engine (method='direct' on a "
+                          "structured operator)", "10")
+    if resume_state is not None:
+        raise _not_ported("resume_state", "5")
+    if param.return_state:
+        raise _not_ported("return_state", "5")
+    with full_f32_matmul():
+        return _solve_direct(c, a_op, b, cone, param, warm_start)
+
+
+def _solve_direct(c, a_op, b, cone, param, warm_start):
+    dtype = torch.promote_types(c.dtype, b.dtype)
+    device = a_op.a.device
+    c = c.to(dtype)
+    b = b.to(dtype)
+    # pin A to the iterate dtype
+    a_op = DenseOp(a_op.a.to(dtype).contiguous())
+    n = c.shape[0]
+    m = b.shape[0]
+    if cone.dim != m:
+        raise ValueError(f"cone dim {cone.dim} != m {m}")
+    if a_op.shape != (m, n):
+        raise ValueError(f"operator shape {a_op.shape} != ({m}, {n})")
+
+    equil_d = equil_e = None
+    if param.equil_iters is not None and param.equil_iters > 0:
+        from totsu_tpu_torch.solver.scaling import ruiz_equilibrate_op
+        a_op, b, c, equil_d, equil_e = ruiz_equilibrate_op(
+            a_op, b, c, cone, iters=param.equil_iters)
+    amat = a_op.a
+
+    eps_zero = param.eps_zero
+    eps_inf = effective_eps_inf(param, dtype)
+    max_iter = param.bounded_max_iter
+    check_period = max(1, param.check_period)
+    if param.accel == "halpern":
+        # the reflection 2T - I is nonexpansive for the unrelaxed DR map
+        if param.relax != 1.0:
+            raise ValueError("accel='halpern' requires relax=1.0")
+        relax = 1.0
+    elif param.accel:
+        raise ValueError(
+            f"accel {param.accel!r} is not supported by the direct engine"
+            " ('halpern' is)")
+    else:
+        # relax=1.0 is the dataclass default, which for this engine means
+        # SCS's over-relaxation 1.5
+        relax = float(param.relax) if param.relax != 1.0 else 1.5
+
+    norm_b = torch.linalg.vector_norm(b)
+    norm_c = torch.linalg.vector_norm(c)
+    # b/c normalization, on by default for this engine: iterate on
+    # b/||b||, c/||c||; criteria and solution stay un-normalized
+    do_norm = bool(param.normalize) if param.normalize is not None else True
+    if do_norm:
+        sb = torch.where(norm_b > eps_zero, norm_b, 1.0)
+        sc = torch.where(norm_c > eps_zero, norm_c, 1.0)
+        b_it, c_it = b / sb, c / sc
+    else:
+        sb = sc = None
+        b_it, c_it = b, c
+
+    # the cold start u0 = v0 = e_tau
+    nm1 = n + m + 1
+    u0 = torch.zeros(nm1, dtype=dtype, device=device)
+    u0[-1] = 1.0
+    v0 = u0.clone()
+    if warm_start is not None:
+        ws_x, ws_y = warm_start
+        if ws_x is not None:
+            ws_x = torch.as_tensor(ws_x, dtype=dtype, device=device)
+            if equil_e is not None:
+                ws_x = ws_x / equil_e
+            if do_norm:
+                ws_x = ws_x / sb
+            u0[:n] = ws_x
+        if ws_y is not None:
+            ws_y = torch.as_tensor(ws_y, dtype=dtype, device=device)
+            if equil_d is not None:
+                ws_y = ws_y / equil_d
+            if do_norm:
+                ws_y = ws_y / sc
+            u0[n:n + m] = cone.project(ws_y, dual=True)
+        # SCS's warm start of v = (0, s, kappa = 0) with s = Pi_K(b - A x0):
+        # at the exact solution (u0, v0) is a fixed point of the DR map
+        v0 = torch.zeros(nm1, dtype=dtype, device=device)
+        v0[n:n + m] = cone.project(b_it - a_op.matvec(u0[:n]), dual=False)
+
+    cache = spd_cache(amat)
+
+    def spd_solve(rhs):
+        z = cache.apply_inv(rhs)
+        for _ in range(cache.refine_steps):
+            resid = rhs - z - _matmul(amat.T, _matmul(amat, z))
+            z = z + cache.apply_inv(resid)
+        return z
+
+    def m_solve(r1, r2):
+        z1 = spd_solve(r1 - _matmul(amat.T, r2))
+        return z1, r2 + _matmul(amat, z1)
+
+    # the Sherman-Morrison border g = M^{-1} h
+    h = torch.cat([c_it, b_it])
+    gh = torch.cat(m_solve(c_it, b_it))
+    denom = 1.0 + torch.dot(h, gh)
+
+    def iq_solve(w):
+        # solve (I + Q) z = w, z = (z1 (n), z2 (m), ztau)
+        wtau = w[-1]
+        rhs = w[:n + m] - wtau * h
+        t = torch.cat(m_solve(rhs[:n], rhs[n:]))
+        z = t - gh * (torch.dot(h, t) / denom)
+        ztau = wtau + torch.dot(h, z)
+        return torch.cat([z, ztau[None]])
+
+    def proj_c(w):
+        # Pi_C with C = R^n x K* x R+
+        return torch.cat([w[:n], cone.project(w[n:n + m], dual=True),
+                          torch.clamp(w[-1:], min=0.0)])
+
+    def update(u, v):
+        ut = iq_solve(u + v)
+        ut = u + relax * (ut - u)
+        u_new = proj_c(ut - v)
+        return u_new, v - ut + u_new
+
+    def t_map(z):
+        # the DR operator on z = u~ - v: T(z) = S(2 Pi_C(z) - z) - Pi_C(z)
+        # + z, with S the (I + Q) resolvent
+        pu = proj_c(z)
+        return iq_solve(2.0 * pu - z) - pu + z
+
+    def pair(z):
+        # the Moreau pair of z: u = Pi_C(z), v = u - z with <u, v> = 0
+        pu = proj_c(z)
+        return pu, pu - z
+
+    pdhg_check = _make_check(a_op, c, b, norm_b, norm_c, sb, sc,
+                             param.eps_acc, eps_inf, eps_zero, max_iter)
+
+    def check(u, v, k):
+        # x = u.x, y = u.y, tau = u.tau; the slack s is v's y block
+        return pdhg_check((u[:n], u[n:n + m], v[n:n + m], u[-1]), None, k)
+
+    if warm_start is not None:
+        # an already-converged seed terminates at 0 iterations
+        st, crits = check(u0, v0, 0)
+        status = int(st.item())
+    else:
+        status = int(SolverStatus.RUNNING)
+        crits = torch.full((5,), float("inf"), dtype=dtype, device=device)
+    if param.accel == "halpern":
+        # seed z0 = u~_0 - v0, what the first pair step would produce (not
+        # u0 - v0 = 0, the trivial fixed point of the embedding)
+        z0 = iq_solve(u0 + v0) - v0
+        z, k, status, crits = _run_halpern_dr(
+            t_map, pair, check, z0, 0, status, crits, max_iter,
+            check_period)
+        u, _ = pair(z)
+    else:
+        u, _, k, status, crits = _run_plain(
+            update, check, u0, v0, 0, status, crits, max_iter, check_period)
+    return _finish((u[:n], u[n:n + m], None, u[-1]), k, status, crits,
+                   eps_zero, sb, sc, equil_d, equil_e)

@@ -3,10 +3,11 @@
 Port of ``totsu_tpu.solver.params``: the same fields with the same
 defaults and meaning, so a parameter set carries across field by field
 (``totsu_tpu_torch.interop.param_from_reference``). Fields whose feature
-has no counterpart in the port yet (``method='direct'``,
-``accel='restart'``, ``profile='fast'``, ``return_state``,
-``log_period``) are kept so the surface matches; the solver raises
+has no counterpart in the port yet (``return_state``, ``log_period``)
+are kept so the surface matches; the solver raises
 ``NotImplementedError`` naming the ROADMAP item when one of them is set.
+``cg_precond`` belongs to the indirect engine (ROADMAP item 10) and has
+no effect on the dense engines.
 """
 
 import dataclasses
@@ -38,21 +39,31 @@ class SolverParam:
     relax: float = 1.0
     #: Ruiz-equilibration sweeps (``None`` = unset/off, ``0`` = explicitly off).
     equil_iters: Optional[int] = None
-    #: Iteration engine: 'pdhg' (ported) or 'direct' (not yet ported).
+    #: Iteration engine: 'pdhg' (the reference's Pock-Chambolle method) or
+    #: 'direct' (Douglas-Rachford on the embedding with a cached solve of
+    #: I + A^T A; dense A only, the indirect mode is not yet ported).
     method: str = "pdhg"
-    #: Acceleration: '' (reference iterate path) or 'halpern' (restarted
-    #: reflected Halpern); 'restart' is not yet ported.
+    #: Acceleration: '' (reference iterate path), 'halpern' (restarted
+    #: reflected Halpern; pdhg and direct) or 'restart' (PDLP-style
+    #: restarted averaging; pdhg host loop only).
     accel: str = ""
-    #: b/c norm normalization; ``None`` = engine default (off for pdhg).
+    #: b/c norm normalization; ``None`` = engine default (off for pdhg, on
+    #: for direct).
     normalize: Optional[bool] = None
     #: Return the raw iteration state (not yet ported).
     return_state: bool = False
     #: Storage dtype of A inside the update matvecs (e.g. 'bfloat16');
     #: the criteria keep the full-precision A.
     matvec_dtype: Optional[str] = None
-    #: 'reference' (default) or 'fast' (not yet ported).
+    #: 'reference' (default) or 'fast': every field still at its default
+    #: gets the JAX package's fast setting. Dense A inside the megakernel's
+    #: envelope on the card (n <= 300; n <= 200 with RSOC blocks; never
+    #: with exp/pow blocks) stays on pdhg with Halpern and kernel='auto';
+    #: other dense A with n <= 8192 takes method='direct' with Halpern;
+    #: the rest pdhg with Halpern, normalize and Ruiz. The crossovers are
+    #: TPU measurements, unmeasured on the H100.
     profile: str = "reference"
-    #: Indirect-engine CG preconditioner (direct engine; not yet ported).
+    #: Indirect-engine CG preconditioner (not yet ported; no effect here).
     cg_precond: str = "auto"
     #: Iteration-loop backend: '' = host loop, 'mega' = the whole-solve
     #: CUDA kernel (its plain version on CPU tensors), 'auto' = the kernel
