@@ -22,9 +22,12 @@ The last two lines of standard output are the kernels' JSON record and
 the JSON status line ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -635,6 +638,56 @@ def lp_kkt(c, a, b, x, y):
     cx, by = float(c @ x), float(b @ y)
     gap = abs(cx + by) / (1.0 + abs(cx) + abs(by))
     return pri, dual, gap
+
+
+# the fields two SolveResults must share bit for bit
+RESULT_TENSORS = ("x", "y", "cri_pri", "cri_dual", "cri_gap", "cri_unbdd",
+                  "cri_infeas")
+
+
+def bitwise_diff(r1, r2):
+    """The fields in which two SolveResults differ: the status and every
+    tensor of RESULT_TENSORS, compared bit for bit."""
+    out = [] if r1.status == r2.status else ["status"]
+    return out + [f for f in RESULT_TENSORS
+                  if not torch.equal(getattr(r1, f), getattr(r2, f))]
+
+
+def split_solve(solve, param, k=1000):
+    """(k, whole, first, second): ``solve(param, **kw)`` run once for 2k
+    iterations, and as k iterations with ``return_state`` resumed for k
+    more. k is a multiple of the check period (a loop stops on a check),
+    the largest up to ``k`` with the whole solve still EXCESS_ITER (a
+    solve that converges before 2k is split inside its run)."""
+    def run(max_iter, **kw):
+        return solve(dataclasses.replace(param, max_iter=max_iter,
+                                         return_state=True), **kw)
+
+    from totsu_tpu_torch import SolverStatus
+    cp = max(1, param.check_period)
+    k = cp * (k // cp)
+    whole = run(2 * k)
+    if whole.status != SolverStatus.EXCESS_ITER:
+        k = cp * ((whole.iters - 1) // (2 * cp))
+        check(k > 0, f"a solve of {whole.iters} iterations cannot be split")
+        whole = run(2 * k)
+    first = run(k)
+    second = run(k, resume_state=first.state)
+    return k, whole, first, second
+
+
+def log_ks(text):
+    """The iteration count at the head of each progress line in ``text``
+    (``"{k}: ..."``, as the host loops print them)."""
+    return [int(m) for m in re.findall(r"^(\d+): ", text, re.M)]
+
+
+def logged_ks(iters, check_period, log_period, k_start=0):
+    """The checks of a host loop from ``k_start`` to ``k_start + iters``
+    that print a progress line."""
+    return [k for k in range(k_start + check_period, k_start + iters + 1,
+                             check_period)
+            if (k - check_period) % log_period < check_period]
 
 
 def main():
@@ -1549,6 +1602,229 @@ def main():
               f"({100 * busy_us / wall_us:.1f}% busy), {nlaunch:.1f} kernel "
               "launches per iteration; top kernels (us per iteration) "
               + ", ".join(f"{k} {t:.1f}" for k, t in top), flush=True)
+
+    # ---- phases 17-19: checkpoint / resume, chunked solves, progress
+    # logging and the Solver facade, each path driven once with the launch
+    # counts set to 0 just before it
+    EXCESS = tt.SolverStatus.EXCESS_ITER
+    p_plain = dataclasses.replace(p_full, accel="")
+    p_mega_plain = dataclasses.replace(p_mega, accel="")
+
+    def lp100(p, **kw):
+        return tt.solve_jit(c2t, a2t, b2t, lp2_cone, p, **kw)
+
+    def qp50(p, **kw):
+        return tt.solve_jit(qprob.c, qprob.a, qprob.b, qprob.cone, p, **kw)
+
+    kept = {}  # every result of a path, by path name
+
+    def keep(name, fn):
+        def run():
+            kept[name] = fn()
+            out = kept[name]
+            return out[-1] if isinstance(out, tuple) else out
+        return run
+
+    splits17 = {
+        "LP n=100 split, host loop plain": (lp100, p_plain),
+        "LP n=100 split, host loop halpern": (lp100, p_full),
+        "LP n=100 split, host loop restart": (lp100, p_restart),
+        "LP n=100 split, megakernel plain": (lp100, p_mega_plain),
+        "QP n=50 split, megakernel plain": (qp50, p_mega_plain),
+    }
+    paths17 = {name: keep(name, lambda s=s_, p=p_: split_solve(s, p))
+               for name, (s_, p_) in splits17.items()}
+    p_full_st = dataclasses.replace(p_full, return_state=True)
+    paths17["LP n=100 chunked 500, host loop halpern"] = keep(
+        "chunked halpern", lambda: tt.solve(c2t, a2t, b2t, lp2_cone,
+                                            p_full_st, chunk_iters=500))
+    paths17["LP n=100 chunked 500, megakernel halpern"] = keep(
+        "chunked mega", lambda: tt.solve(c2t, a2t, b2t, lp2_cone, p_mega,
+                                         chunk_iters=500))
+    paths17["LP n=100 resumed at CONVERGED, host loop halpern"] = keep(
+        "frozen", lambda: lp100(p_full, resume_state=kept[
+            "chunked halpern"].state))
+    runs17 = drive(paths17, kernels)
+
+    # ---- phase 17: resume on the pdhg engine, f32 on the card. Each split
+    # (k iterations, then k more from the checkpoint) against one solve of
+    # 2k: both EXCESS_ITER, the same global k, and x, y and every
+    # criterion bitwise equal (the loops and the kernels sum in a fixed
+    # order: a difference is a seam fault, not noise). Chunks of 500: the
+    # host loop's Halpern solve takes phase 5's iterations to a bitwise x;
+    # the megakernel's restarts its epoch at each chunk, so CONVERGED with
+    # the objective within 5e-3 of phase 5's. A CONVERGED checkpoint
+    # resumed takes 0 iterations to a bitwise x
+    line17 = []
+    for name in splits17:
+        k17, whole, first, second = kept[name]
+        check(first.status == second.status == whole.status == EXCESS,
+              f"{name}: statuses {first.status}, {second.status}, whole "
+              f"{whole.status}")
+        check(second.state.k == whole.state.k == 2 * k17,
+              f"{name}: k {second.state.k}, whole {whole.state.k}")
+        diff = bitwise_diff(second, whole)
+        check(diff == [], f"{name}: resumed at {k17} differs from the "
+              f"whole solve in {diff}")
+        line17.append(f"{name} {k17}+{k17}: bitwise")
+    plans17 = [mk.device_plan(*a_.shape, cone_, dev)[0].grid
+               for a_, cone_ in ((a2t, lp2_cone), (qprob.a.a, qprob.cone))]
+    r_chx = kept["chunked halpern"]
+    check(r_chx.iters == r_lp_x.iters and torch.equal(r_chx.x, r_lp_x.x),
+          f"chunked host-loop LP: {r_chx.iters} iterations (phase 5 "
+          f"{r_lp_x.iters}), x bitwise {torch.equal(r_chx.x, r_lp_x.x)}")
+    r_chm = kept["chunked mega"]
+    o_chm, o_5m = objective(c2, r_chm), objective(c2, r_lp_m)
+    check(r_chm.converged and rel_obj(o_chm, o_5m) <= 5e-3,
+          f"chunked megakernel LP: status {r_chm.status}, objective "
+          f"{o_chm} vs phase 5's {o_5m}")
+    r_frz = kept["frozen"]
+    check(r_frz.converged and r_frz.iters == 0
+          and torch.equal(r_frz.x, r_chx.x),
+          f"CONVERGED checkpoint resumed: status {r_frz.status}, "
+          f"{r_frz.iters} iterations, x bitwise "
+          f"{torch.equal(r_frz.x, r_chx.x)}")
+    cnt17 = {k: sum(r[2][k] for r in runs17.values()) for k in kernels}
+    print("phase 17 resume on the pdhg engine (n=100 LP, QP n=50; "
+          f"megakernel G={plans17[0]} and G={plans17[1]}): "
+          + "; ".join(line17)
+          + f"; chunks of 500, host loop Halpern {r_chx.iters} iterations "
+          f"(phase 5 {r_lp_x.iters}), bitwise x, "
+          f"{runs17['LP n=100 chunked 500, host loop halpern'][1]:.3f} s "
+          f"(phase 5 {wall_lp_x:.3f} s); chunks of 500, megakernel "
+          f"{r_chm.iters} iterations (unchunked {r_lp_m.iters}), objective "
+          f"{o_chm:.6f} vs {o_5m:.6f} (rel {rel_obj(o_chm, o_5m):.2e}); "
+          f"CONVERGED checkpoint resumed: 0 iterations, bitwise x; "
+          f"launches {cnt17}", flush=True)
+
+    # ---- phase 18: chunked direct engine at full width (profile='fast'):
+    # the n=4000 LP in chunks of 2,000 and the logistic regression in
+    # chunks of 1,000 take the unchunked solves' iterations (phases 13 and
+    # 14) to a bitwise x, and build the cache once (spd_cache wrapped).
+    # Each runs right after a repeat of the unchunked solve, so the two
+    # walls see the same host; the host-bound loop's wall drifts by tens
+    # of percent over a run, so chunking's own cost is read apart too:
+    # the time outside the loop and the cache build
+    spans18 = []
+    real18 = time_calls(tdirect, ("spd_cache", "newton_schulz_inverse",
+                                  "_run_halpern_dr", "_run_plain"), spans18)
+    cells18 = (
+        ("n=4000 LP", 2000, r13,
+         lambda **kw: tt.solve(c3t, a3t, b3t, lp3_cone, p_fast, **kw)),
+        ("logistic regression", 1000, r14,
+         lambda **kw: tt.solve(c4t, a4t, b4t, lr_cone, p_fast, **kw)))
+    paths18 = {}
+    for what, chunk, _, fn in cells18:
+        paths18[f"{what}, fast profile, unchunked"] = fn
+        paths18[f"{what}, fast profile, chunks of {chunk}"] = \
+            lambda f=fn, n_=chunk: f(chunk_iters=n_)
+    try:
+        runs18 = drive(paths18, kernels, spans18)
+    finally:
+        for name, fn in real18.items():
+            setattr(tdirect, name, fn)
+
+    def outside_ms(wall, sp):
+        """Wall ms outside the direct engine's loop and cache build."""
+        return 1e3 * wall - span_ms(sp, "_run_halpern_dr") \
+            - span_ms(sp, "spd_cache")
+
+    line18 = []
+    for what, chunk, r_first, _ in cells18:
+        r_u, wall_u, _, sp_u = runs18[f"{what}, fast profile, unchunked"]
+        r_c, wall_c, cnt_c, sp_c = runs18[
+            f"{what}, fast profile, chunks of {chunk}"]
+        builds = sum(1 for n_, _, _ in sp_c if n_ == "spd_cache")
+        loops = sum(1 for n_, _, _ in sp_c if n_ == "_run_halpern_dr")
+        check(r_c.converged and r_c.iters == r_u.iters == r_first.iters
+              and torch.equal(r_c.x, r_u.x) and torch.equal(r_c.x, r_first.x),
+              f"{what} chunked: status {r_c.status}, {r_c.iters} iterations "
+              f"(unchunked {r_u.iters}, first {r_first.iters}), x bitwise "
+              f"{torch.equal(r_c.x, r_u.x)}")
+        check(builds == 1, f"{what} chunked: {builds} cache builds")
+        seam = outside_ms(wall_c, sp_c) - outside_ms(wall_u, sp_u)
+        line18.append(
+            f"{what}: {r_c.iters} iterations in {loops} chunks, bitwise x, "
+            f"1 cache build ({span_ms(sp_c, 'spd_cache'):.1f} ms); wall "
+            f"chunked {1e3 * wall_c:.1f} ms, unchunked just before "
+            f"{1e3 * wall_u:.1f} ms ({1e3 * (wall_c - wall_u):+.1f} ms, "
+            f"{100 * (wall_c - wall_u) / wall_u:+.2f}%); loop "
+            f"{span_ms(sp_c, '_run_halpern_dr'):.1f} / "
+            f"{span_ms(sp_u, '_run_halpern_dr'):.1f} ms; outside the loop "
+            f"and the build {outside_ms(wall_c, sp_c):.1f} / "
+            f"{outside_ms(wall_u, sp_u):.1f} ms, so {seam:+.1f} ms for "
+            f"{loops - 1} seams ({seam / max(1, loops - 1):+.2f} ms "
+            "each); "
+            f"launches {cnt_c}")
+    print("phase 18 chunked direct engine: " + "; ".join(line18),
+          flush=True)
+
+    # ---- phase 19: progress logging and the Solver facade. Phase 5's
+    # host-loop LP with log_period=500 prints one line per logged check,
+    # each parsed back to the loop's k; kernel='auto' with logging warns
+    # and keeps the host loop; the golden LP in f64 through
+    # Solver().par(...) takes 160 iterations on the card
+    import warnings
+    p_log = dataclasses.replace(p_full, log_period=500)
+    logged = io.StringIO()
+
+    def logged_solve():
+        with contextlib.redirect_stdout(logged):
+            return tt.solve(c2t, a2t, b2t, lp2_cone, p_log)
+
+    def auto_logged():
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            with contextlib.redirect_stdout(io.StringIO()):
+                r = tt.solve_jit(c2t, a2t, b2t, lp2_cone, dataclasses.replace(
+                    p_log, kernel="auto", max_iter=200))
+        kept["auto warnings"] = [str(w.message) for w in seen
+                                 if issubclass(w.category, RuntimeWarning)]
+        return r
+
+    solver19 = tt.Solver().par(lambda q: setattr(q, "max_iter", 100_000))
+    runs19 = drive({
+        "LP n=100, host loop halpern, log_period=500": logged_solve,
+        "LP n=100, host loop halpern, unlogged":
+            lambda: tt.solve(c2t, a2t, b2t, lp2_cone, p_full),
+        "LP n=100, kernel='auto', log_period=500": auto_logged,
+        "golden LP f64, Solver().par(...)":
+            lambda: solver19.solve((c, a, b, golden_cone)),
+    }, kernels)
+    r_log, wall_log, cnt_log, _ = runs19[
+        "LP n=100, host loop halpern, log_period=500"]
+    got_ks = log_ks(logged.getvalue())
+    want_ks = logged_ks(r_log.iters, p_log.check_period, p_log.log_period)
+    check(r_log.iters == r_lp_x.iters and torch.equal(r_log.x, r_lp_x.x),
+          f"logged LP: {r_log.iters} iterations (phase 5 {r_lp_x.iters})")
+    check(got_ks == want_ks, f"logged LP printed the checks {got_ks}, not "
+          f"{want_ks}")
+    r_unl, wall_unl, _, _ = runs19["LP n=100, host loop halpern, unlogged"]
+    check(r_unl.iters == r_log.iters and torch.equal(r_unl.x, r_log.x),
+          f"unlogged repeat: {r_unl.iters} iterations (logged "
+          f"{r_log.iters})")
+    r_auto, _, cnt_auto, _ = runs19["LP n=100, kernel='auto', log_period=500"]
+    check(any("megakernel" in w for w in kept["auto warnings"])
+          and cnt_auto["megakernel"] == 0 and cnt_auto["dual_matvec"] > 0
+          and r_auto.iters == 200,
+          f"kernel='auto' with logging: warnings {kept['auto warnings']}, "
+          f"launches {cnt_auto}, {r_auto.iters} iterations")
+    r_fac, wall_fac, _, _ = runs19["golden LP f64, Solver().par(...)"]
+    check(r_fac.iters == 160 and r_fac.x.device.type == "cuda",
+          f"golden LP through Solver: {r_fac.iters} iterations on "
+          f"{r_fac.x.device}")
+    print(f"phase 19 logging: {len(got_ks)} lines at k = {got_ks[0]}, "
+          f"{got_ks[1]}, ..., {got_ks[-1]} (one per logged check), "
+          f"{r_log.iters} iterations, bitwise phase 5's x; "
+          f"{1e6 * wall_log / r_log.iters:.1f} us per iteration logged, "
+          f"{1e6 * wall_unl / r_unl.iters:.1f} unlogged just after "
+          f"({100 * (wall_log - wall_unl) / wall_unl:+.2f}%); "
+          "kernel='auto' with logging warned and kept the host loop "
+          f"(launches {cnt_auto}); golden LP f64 through Solver().par(...): "
+          f"{r_fac.iters} iterations, {1e3 * wall_fac:.1f} ms", flush=True)
+    for runs in (runs17, runs18, runs19):
+        for k in kernels:
+            main_counts[k] += sum(r[2][k] for r in runs.values())
 
     primal = cp_main[False]
     record = {"kernels": [

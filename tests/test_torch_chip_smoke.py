@@ -403,3 +403,105 @@ def test_cp_timing_refuses_without_cuda():
                          text=True)
     assert out.returncode != 0 and "no CUDA device" in out.stderr
 
+
+
+def _small_lp(n=8, seed=1):
+    rng = np.random.default_rng(seed)
+    g = rng.normal(size=(2 * n, n))
+    h = g @ rng.normal(size=n) + rng.random(2 * n) + 0.1
+    a = np.concatenate([g, np.eye(n), -np.eye(n)])
+    b = np.concatenate([h, np.full(2 * n, 10.0)])
+    return [torch.tensor(x) for x in (rng.normal(size=n), a, b)] \
+        + [4 * n]
+
+
+@pytest.mark.parametrize("accel", ["", "halpern", "restart"])
+def test_split_solve_is_bitwise_on_the_cpu(accel):
+    # phase 17's split: k iterations, then k more from the checkpoint,
+    # against one solve of 2k, k rounded down to the check period; asked
+    # for a k past half the golden LP's run (160 or 200 iterations), the
+    # split moves inside it
+    import totsu_tpu_torch as tt
+    c, a, b = (torch.tensor(x, dtype=torch.float64) for x in (
+        [-1.0, 0.0], [[4.0, -1.0], [-1.0, 4.0], [-1.0, -1.0]],
+        [6.0, 6.0, 1.0]))
+    cone = tt.ConeLayout([tt.rpos(3)])
+
+    def solve(p, **kw):
+        return tt.solve_jit(c, a, b, cone, p, **kw)
+
+    p = tt.SolverParam(check_period=20, eps_acc=1e-6, accel=accel)
+    k, whole, first, second = cs.split_solve(solve, p, k=50)
+    assert k == 40 and whole.status == tt.SolverStatus.EXCESS_ITER
+    assert cs.bitwise_diff(second, whole) == []
+    assert second.state.k == whole.state.k == 80
+    full = solve(dataclasses_replace(p, max_iter=100_000))
+    assert full.converged
+    k, whole, first, second = cs.split_solve(solve, p, k=full.iters)
+    assert 0 < k and 2 * k < full.iters and k % 20 == 0
+    assert first.status == second.status == tt.SolverStatus.EXCESS_ITER
+    assert cs.bitwise_diff(second, whole) == []
+
+
+def dataclasses_replace(p, **kw):
+    import dataclasses
+    return dataclasses.replace(p, **kw)
+
+
+def test_bitwise_diff_names_the_fields():
+    import dataclasses
+    import totsu_tpu_torch as tt
+    c, a, b, m = _small_lp()
+    r = tt.solve_jit(c, a, b, tt.ConeLayout([tt.rpos(m)]),
+                     tt.SolverParam(max_iter=40))
+    assert cs.bitwise_diff(r, r) == []
+    nudged = dataclasses.replace(r, x=r.x.clone(), cri_gap=r.cri_gap + 0.0,
+                                 status=1)
+    nudged.x[0] = torch.nextafter(nudged.x[0], torch.tensor(np.inf,
+                                                            dtype=r.x.dtype))
+    assert cs.bitwise_diff(nudged, r) == ["status", "x"]
+
+
+def test_log_ks_reads_back_the_loop_s_lines(capfd):
+    # phase 19's gate: one line per logged check, each parsed back to the
+    # k of the check, for a run that starts at 0 and one resumed at 60
+    import totsu_tpu_torch as tt
+    c, a, b, m = _small_lp()
+    cone = tt.ConeLayout([tt.rpos(m)])
+    p = tt.SolverParam(max_iter=400, check_period=20, log_period=50,
+                       accel="halpern", return_state=True)
+    tt.solve_jit(c, a, b, cone, p)
+    got = cs.log_ks(capfd.readouterr().out)
+    assert got == cs.logged_ks(400, 20, 50)
+    assert got == [20, 80, 120, 180, 220, 280, 320, 380]
+    part = tt.solve_jit(c, a, b, cone, dataclasses_replace(p, max_iter=60))
+    capfd.readouterr()
+    tt.solve_jit(c, a, b, cone, p, resume_state=part.state)
+    assert cs.log_ks(capfd.readouterr().out) == cs.logged_ks(
+        400, 20, 50, k_start=60)
+    assert cs.log_ks("x\n20: res 1.00e-02 (restart=False)\n 40: no\n") \
+        == [20]
+
+
+def test_spd_cache_counted_once_in_a_chunked_direct_solve():
+    # phase 18's gate, on the CPU: time_calls wraps the module function,
+    # and a chunked solve builds the cache once
+    import totsu_tpu_torch as tt
+    from totsu_tpu_torch.solver import direct as tdirect
+    c, a, b, m = _small_lp()
+    spans = []
+    torch_sync = torch.cuda.synchronize
+    torch.cuda.synchronize = lambda *a_, **kw: None
+    real = cs.time_calls(tdirect, ("spd_cache", "_run_halpern_dr"), spans)
+    try:
+        r = tt.solve(c, a, b, tt.ConeLayout([tt.rpos(m)]),
+                     tt.SolverParam(max_iter=100_000, method="direct",
+                                    accel="halpern", check_period=20),
+                     chunk_iters=40)
+    finally:
+        for name, fn in real.items():
+            setattr(tdirect, name, fn)
+        torch.cuda.synchronize = torch_sync
+    chunks = sum(1 for n, _, _ in spans if n == "_run_halpern_dr")
+    assert r.converged and chunks == -(-r.iters // 40) > 1
+    assert sum(1 for n, _, _ in spans if n == "spd_cache") == 1

@@ -252,10 +252,6 @@ def test_direct_unported_raise():
     with pytest.raises(NotImplementedError, match="item 10"):
         direct.solve_direct_jit(ct, Op(), bt, cone,
                                 tt.SolverParam(method="direct"))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        direct.solve_direct_jit(ct, tt.DenseOp(at), bt, cone,
-                                tt.SolverParam(method="direct"),
-                                resume_state=object())
 
 
 # ---- twins of tests/test_direct.py (dense cases), on the port

@@ -125,6 +125,7 @@ def test_port_never_imports_jax():
             "totsu_tpu_torch.ops.kernels.megakernel, "
             "totsu_tpu_torch.ops.kernels.cone_proj, "
             "totsu_tpu_torch.solver.direct, "
+            "totsu_tpu_torch.solver.api, totsu_tpu_torch.utils.env, "
             "totsu_tpu_torch.problems.gp; "
             "print(sorted(m for m in sys.modules if m in ('jax', "
             "'totsu_tpu') or m.startswith(('jax.', 'jaxlib', "

@@ -151,30 +151,16 @@ def test_dual_matvec_counts_only_launches():
 
 
 @pytest.mark.parametrize("kw,solve_kw", [
-    (dict(method="direct", return_state=True), {}),
     (dict(profile="fast"), dict(row_sharding=object())),
-    (dict(return_state=True), {}),
-    (dict(log_period=10), {}),
-    ({}, dict(chunk_iters=10)),
     ({}, dict(polish=True)),
     ({}, dict(row_sharding=object())),
-], ids=["direct_return_state", "fast_row_sharding", "return_state",
-        "log_period", "chunk_iters", "polish", "row_sharding"])
+], ids=["fast_row_sharding", "polish", "row_sharding"])
 def test_unported_features_raise(kw, solve_kw):
     c, a, b, m = small_lp(seed=5)
     ct, at, bt = interop.problem_from_numpy(c, a, b, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tt.solve(ct, at, bt, tt.ConeLayout([tt.rpos(m)]),
                  tt.SolverParam(max_iter=10, **kw), **solve_kw)
-
-
-def test_resume_state_raises():
-    from totsu_tpu_torch.solver.conic import solve_jit
-    c, a, b, m = small_lp(seed=5)
-    ct, at, bt = interop.problem_from_numpy(c, a, b, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve_jit(ct, at, bt, tt.ConeLayout([tt.rpos(m)]),
-                  tt.SolverParam(max_iter=10), resume_state=object())
 
 
 def test_param_from_reference_copies_every_field():

@@ -24,17 +24,20 @@ kernel wrapper runs its plain PyTorch version instead.
 Besides pdhg (plain, Halpern and restarted averaging), ``method='direct'``
 runs the dense direct engine (Douglas-Rachford on the embedding with a
 cached solve of I + A^T A, plain or Halpern), and ``profile='fast'``
-routes a problem as the JAX package does.
+routes a problem as the JAX package does. Every engine checkpoints
+(``return_state``, a :class:`ResumeState`) and resumes exactly
+(``resume_state``); ``solve(chunk_iters=N)`` chains such calls, and
+``log_period`` prints the host loops' progress.
 
-Not ported yet (ROADMAP.md): resume / checkpoints and chunked solves, the
-indirect engine and structured operators, progress logging, the PSD /
-custom projections, the QCQP / SOCP / SDP reductions, polish, diff,
-batching and distribution.
+Not ported yet (ROADMAP.md): the indirect engine and structured
+operators, the PSD / custom projections, the QCQP / SOCP / SDP
+reductions, polish, diff, batching and distribution.
 """
 
 from totsu_tpu_torch.solver.params import SolverParam, SolverStatus, SolverError
+from totsu_tpu_torch.solver.api import Solver
 from totsu_tpu_torch.solver.conic import (solve, solve_jit, solve_sequence,
-                                          SolveResult)
+                                          SolveResult, ResumeState)
 from totsu_tpu_torch.solver.cone import (
     ConeLayout, zero, rpos, soc, rsoc, psd, expc, powc, custom,
 )
@@ -46,8 +49,8 @@ from totsu_tpu_torch.problems import (
 __version__ = "0.1.0"
 
 __all__ = [
-    "SolverParam", "SolverStatus", "SolverError",
-    "solve", "solve_jit", "solve_sequence", "SolveResult",
+    "SolverParam", "SolverStatus", "SolverError", "Solver",
+    "solve", "solve_jit", "solve_sequence", "SolveResult", "ResumeState",
     "ConeLayout", "zero", "rpos", "soc", "rsoc", "psd", "expc", "powc", "custom",
     "LinOp", "DenseOp", "as_linop",
     "ConicProblem", "ProbLP", "ProbQP", "MatBuild",

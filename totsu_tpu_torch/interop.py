@@ -1,10 +1,11 @@
 """Carry state across from the JAX package (``totsu_tpu``).
 
-The JAX package's ``SolverParam``, ``Factor`` and ``ConeLayout`` are plain
-frozen dataclasses, so their fields are read here without importing
-``jax``: the caller hands the objects in. Problem data is handed over as
-numpy arrays, which both packages accept; in the port it goes to the CUDA
-card unless the caller names another device.
+The JAX package's ``SolverParam``, ``Factor``, ``ConeLayout`` and
+``ResumeState`` are plain frozen dataclasses, so their fields are read
+here without importing ``jax``: the caller hands the objects in. Problem
+data and a checkpoint's arrays are handed over as numpy arrays, which both
+packages accept; in the port they go to the CUDA card unless the caller
+names another device.
 """
 
 import dataclasses
@@ -13,7 +14,8 @@ import numpy as np
 import torch
 
 from totsu_tpu_torch.solver.cone import CUSTOM, ConeLayout, Factor
-from totsu_tpu_torch.solver.operator import target_device
+from totsu_tpu_torch.solver.conic import ResumeState
+from totsu_tpu_torch.solver.operator import as_dtype, target_device
 from totsu_tpu_torch.solver.params import SolverParam
 
 
@@ -50,3 +52,43 @@ def problem_from_numpy(c, a, b, *, device=None, dtype=torch.float64):
     return tuple(torch.as_tensor(np.asarray(x), dtype=dtype,
                                  device=dev).contiguous()
                  for x in (c, a, b))
+
+
+# the integer entries of a checkpoint's aux (epoch counters, the status)
+_AUX_INTS = ("ke", "status")
+
+
+def resume_state_from_reference(state, *, device=None, dtype=None
+                                ) -> ResumeState:
+    """The port's ResumeState from a JAX one, so a solve checkpointed in
+    the JAX package continues in the port on the same path. Arrays go
+    through numpy to ``device`` (default the CUDA card) in ``dtype``
+    (default their own). The JAX direct engine's Cholesky factor is upper
+    triangular (``cho_factor``), the port's lower: it is transposed. The
+    indirect engine's CG warm start ``ws`` has no meaning here and is
+    dropped."""
+    dev = target_device(device)
+    tdt = None if dtype is None else as_dtype(dtype)
+
+    def tensor(x):
+        return torch.as_tensor(np.array(x), dtype=tdt, device=dev)
+
+    def tree(x):
+        return tuple(tree(i) for i in x) if isinstance(x, tuple) \
+            else tensor(x)
+
+    aux = {}
+    for key, val in state.aux.items():
+        if key == "ws":
+            continue
+        if key in _AUX_INTS:
+            aux[key] = int(np.asarray(val))
+        elif key == "chol_c":
+            aux[key] = tensor(np.triu(np.asarray(val)).T)
+        else:
+            aux[key] = tree(val)
+    if "chol_c" in aux or "prec" in aux:
+        aux["refine_steps"] = 0 if "chol_c" in aux else 2
+    return ResumeState(u=tree(state.u), v=tree(state.v),
+                       k=int(np.asarray(state.k)), aux=aux,
+                       engine=state.engine, accel=state.accel)

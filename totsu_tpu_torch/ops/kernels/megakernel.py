@@ -418,7 +418,7 @@ def solve_mega_plain(a, c_it, b_it, c_ex, b_ex, dp_tau, dp_sigma, u0, v0,
     return conic.run_loop(update, check, u0, v0, cap=max_iter,
                           check_period=check_period, accel=accel,
                           check_at_start=check_at_start, dtype=a.dtype,
-                          device=a.device)
+                          device=a.device)[:5]
 
 
 def _check_inputs(a, vecs, m, n):

@@ -18,11 +18,14 @@ device of A.
 
 The JAX ``lax.while_loop`` becomes a host loop: ``check_period`` updates,
 one termination check, then one ``.item()``-style read of the status —
-the loop's only host sync. ``kernel='mega'`` runs the whole loop instead
+the loop's only host sync (a logged check, ``log_period > 0``, reads its
+printed numbers too). ``kernel='mega'`` runs the whole loop instead
 in one CUDA kernel launch (``ops/kernels/megakernel.py``).
 ``method='direct'`` hands the solve to the direct engine
 (``solver/direct.py``); ``profile='fast'`` picks engine and knobs first
-(:func:`_resolve_fast_profile`).
+(:func:`_resolve_fast_profile`). ``return_state`` hands back a
+:class:`ResumeState` that ``resume_state`` continues exactly, and
+``solve(chunk_iters=N)`` runs a solve as such a chain of N-iteration calls.
 """
 
 import dataclasses
@@ -63,6 +66,84 @@ class SolveResult:
     @property
     def converged(self) -> bool:
         return self.status == SolverStatus.CONVERGED
+
+
+@dataclasses.dataclass(frozen=True)
+class ResumeState:
+    """Checkpoint of a running solve (``SolveResult.state``), enough to
+    resume it exactly:
+
+    * ``u`` / ``v`` — the iterate pair (segment tuples on the pdhg
+      engine, flat ``(n + m + 1,)`` tensors on the direct engine);
+    * ``k`` — the global iteration count (a Python int), so the restart
+      rules see the uninterrupted clock; a resumed solve still reports
+      the iterations of its own call;
+    * ``aux`` — a dict of tensors and ints: the accel epoch (Halpern
+      anchor and counters, restart running sums), the direct engine's
+      cached solve of I + A^T A and Sherman-Morrison border, and the last
+      criteria and status. An empty dict (a megakernel checkpoint, whose
+      in-kernel epoch is not exported) resumes with a fresh accel epoch;
+    * ``engine`` / ``accel`` — resuming another engine raises (the
+      iteration variables differ); another accel starts a fresh epoch.
+
+    The caches are keyed to the problem data: resume only the (c, A, b)
+    that produced the checkpoint. A changed problem takes ``warm_start``.
+    """
+    u: Any
+    v: Any
+    k: int
+    aux: Any
+    engine: str = "pdhg"
+    accel: str = ""
+
+
+def _tensors(x):
+    """Every tensor inside nested tuples / dicts."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, (tuple, list)):
+        return [t for item in x for t in _tensors(item)]
+    return []
+
+
+def _unpack_resume(resume_state, engine: str, accel: str, device, dtype):
+    """(u0, v0, k0, aux) from a ResumeState or a legacy bare (u, v) tuple.
+
+    ``aux`` is None when the checkpoint carries no epoch state for this
+    engine and accel (legacy tuples, megakernel checkpoints, another
+    accel): the solve then resumes with a fresh accel epoch. Another
+    engine raises, and so does a checkpoint whose tensors are not on A's
+    device in the iterate dtype (it is never moved silently)."""
+    other = "direct" if engine == "pdhg" else "pdhg"
+    if isinstance(resume_state, ResumeState):
+        if resume_state.engine != engine:
+            raise ValueError(
+                f"resume_state was produced by the {resume_state.engine} "
+                f"engine and cannot resume method='{engine}' (different "
+                "iteration variables); resume with the same method/profile "
+                "that produced it")
+        u0, v0, k0 = resume_state.u, resume_state.v, int(resume_state.k)
+        aux = resume_state.aux if resume_state.accel == accel else None
+        if aux is not None and len(aux) == 0:
+            aux = None
+    else:
+        u0, v0 = resume_state
+        seg = isinstance(u0, tuple) and len(u0) == 4
+        if seg != (engine == "pdhg"):
+            raise ValueError(
+                f"resume_state was produced by the {other} engine and "
+                f"cannot resume method='{engine}' (different iteration "
+                "variables); resume with the same method/profile that "
+                "produced it")
+        k0, aux = 0, None
+    for t in _tensors((u0, v0, aux)):
+        if t.device != device or t.dtype != dtype:
+            raise ValueError(
+                f"resume_state holds a {t.dtype} tensor on {t.device}; the "
+                f"solve runs in {dtype} on {device}")
+    return u0, v0, k0, aux
 
 
 def _emb_apply(a_op: LinOp, c, b, u):
@@ -202,17 +283,28 @@ def _make_check(a_op: LinOp, c, b, norm_b, norm_c, sb, sc, eps_acc: float,
     return check
 
 
+def _log_due(k: int, check_period: int, log_period: int) -> bool:
+    """Whether the check at ``k`` prints its progress line."""
+    return log_period > 0 and \
+        (k - check_period) % log_period < check_period
+
+
 def _run_plain(update, check, u, v, k: int, status: int, crits, cap: int,
-               check_period: int):
+               check_period: int, aux=None, log_period: int = 0):
     """The reference iteration: ``check_period`` updates, one check, one
-    host read of the status, until a terminal status or the cap."""
+    host read of the status, until a terminal status or the cap. Carries
+    no epoch state: ``aux`` is ignored and the returned one is empty."""
     while status == SolverStatus.RUNNING and k < cap:
         for _ in range(check_period):
             u, v = update(u, v)
         k += check_period
         st, crits = check(u, v, k)
         status = int(st.item())
-    return u, v, k, status, crits
+        if _log_due(k, check_period, log_period):
+            p, d, g, ub, inf = crits.tolist()
+            print(f"{k}: pri_dual_gap {p:.2e} {d:.2e} {g:.2e} "
+                  f"unbdd_infeas {ub:.2e} {inf:.2e}")
+    return u, v, k, status, crits, {}
 
 
 def _sq_dist(a, b):
@@ -233,13 +325,14 @@ def _halpern_weights(ndt: np.dtype, ke: int):
 def _artificial_restart(ndt: np.dtype, ke: int, k: int,
                         check_period: int) -> bool:
     """The epoch has run past 36% of all iterations (at least four check
-    periods): the int ``ke`` compared in the iterate dtype ``ndt``."""
+    periods): the int ``ke`` compared in the iterate dtype ``ndt``, ``k``
+    the global iteration count (a resumed loop's too)."""
     return bool(ndt.type(ke) >= max(ndt.type(0.36) * ndt.type(k),
                                     ndt.type(4.0 * check_period)))
 
 
 def _run_halpern(update, check, u0, v0, k: int, status: int, crits,
-                 cap: int, check_period: int):
+                 cap: int, check_period: int, aux=None, log_period: int = 0):
     """Restarted reflected-Halpern PDHG (rHPDHG; Lu & Yang 2024):
 
         z_{k+1} = (k+1)/(k+2) * (2 T(z_k) - z_k) + 1/(k+2) * z_0,
@@ -249,13 +342,22 @@ def _run_halpern(update, check, u0, v0, k: int, status: int, crits,
     after a necessary decay (x0.8), or the epoch exceeds 36% of all
     iterations; termination is evaluated at T(z). The restart decision is
     computed on the device in the iterate dtype and read to the host with
-    the status in one transfer per check."""
+    the status in one transfer per check.
+
+    ``aux`` (a checkpoint's epoch) restores the anchor and the counters.
+    The result takes T(z) on exit; the returned ``aux`` keeps apart the
+    raw carry ``ru, rv`` the loop would have continued from, which is
+    where an exact resume starts."""
     dtype = u0[0].dtype
     ndt = _np_dtype(dtype)
-    u, v, au, av = u0, v0, u0, v0
-    inf = torch.tensor(float("inf"), dtype=dtype, device=u0[0].device)
-    fp_rst, fp_last = inf, inf
-    ke = 0
+    u, v, ru, rv = u0, v0, u0, v0
+    if aux is not None:
+        au, av, ke = aux["au"], aux["av"], aux["ke"]
+        fp_rst, fp_last = aux["fp_rst"], aux["fp_last"]
+    else:
+        au, av, ke = u0, v0, 0
+        fp_rst = fp_last = torch.tensor(float("inf"), dtype=dtype,
+                                        device=u0[0].device)
     while status == SolverStatus.RUNNING and k < cap:
         for _ in range(check_period):
             tu, tv = update(u, v)
@@ -272,6 +374,7 @@ def _run_halpern(update, check, u0, v0, k: int, status: int, crits,
             | _artificial_restart(ndt, ke, k, check_period)
         status, restart = (int(x) for x in
                            torch.stack([st, restart.to(torch.int32)]).tolist())
+        ru, rv = (tu, tv) if restart else (u, v)
         if restart or status != SolverStatus.RUNNING:
             u, v = tu, tv
         if restart:
@@ -279,11 +382,16 @@ def _run_halpern(update, check, u0, v0, k: int, status: int, crits,
             ke = 0
             fp_rst = fp
         fp_last = fp
-    return u, v, k, status, crits
+        if _log_due(k, check_period, log_period):
+            print(f"{k}: fp_res {float(fp):.2e} (restart={bool(restart)})")
+    return u, v, k, status, crits, {
+        "au": au, "av": av, "ke": ke, "fp_rst": fp_rst, "fp_last": fp_last,
+        "ru": ru, "rv": rv}
 
 
 def _run_restarted(update, check, u0, v0, k: int, status: int, crits,
-                   cap: int, check_period: int):
+                   cap: int, check_period: int, aux=None,
+                   log_period: int = 0):
     """PDLP-style restarted averaging (Applegate et al. 2021, the scheme
     behind cuPDLP): the plain update, with the running average of the
     epoch's iterates. Each check evaluates the criteria at the current
@@ -295,18 +403,25 @@ def _run_restarted(update, check, u0, v0, k: int, status: int, crits,
     progress since the last check, or past 36% of all iterations.
     Averages of iterates stay inside every cone, so the criteria keep
     their meaning there. The statuses of both points, the choice and the
-    restart decision reach the host in one transfer per check."""
+    restart decision reach the host in one transfer per check.
+
+    ``aux`` (a checkpoint's epoch) restores the running sums and the
+    counters; the returned one holds the raw carry ``ru, rv`` apart from
+    the point the result takes on exit, as in :func:`_run_halpern`."""
     dtype = u0[0].dtype
     ndt = _np_dtype(dtype)
-    u, v = u0, v0
+    u, v, ru, rv = u0, v0, u0, v0
 
     def zeros(seg):
         return tuple(torch.zeros_like(x) for x in seg)
 
-    su, sv = zeros(u0), zeros(v0)
-    inf = torch.tensor(float("inf"), dtype=dtype, device=u0[0].device)
-    res_rst, res_last = inf, inf
-    ke = 0
+    if aux is not None:
+        su, sv, ke = aux["su"], aux["sv"], aux["ke"]
+        res_rst, res_last = aux["res_rst"], aux["res_last"]
+    else:
+        su, sv, ke = zeros(u0), zeros(v0), 0
+        res_rst = res_last = torch.tensor(float("inf"), dtype=dtype,
+                                          device=u0[0].device)
     while status == SolverStatus.RUNNING and k < cap:
         for _ in range(check_period):
             u, v = update(u, v)
@@ -330,6 +445,7 @@ def _run_restarted(update, check, u0, v0, k: int, status: int, crits,
             st_c, st_a, use_avg.to(torch.int32),
             restart.to(torch.int32)]).tolist())
         status, crits = (st_a, cr_a) if use_avg else (st_c, cr_c)
+        ru, rv = (ub, vb) if restart and use_avg else (u, v)
         if (restart or status != SolverStatus.RUNNING) and use_avg:
             u, v = ub, vb
         if restart:
@@ -337,43 +453,74 @@ def _run_restarted(update, check, u0, v0, k: int, status: int, crits,
             ke = 0
             res_rst = res
         res_last = res
-    return u, v, k, status, crits
+        if _log_due(k, check_period, log_period):
+            print(f"{k}: res {float(res):.2e} (restart={bool(restart)})")
+    return u, v, k, status, crits, {
+        "su": su, "sv": sv, "ke": ke, "res_rst": res_rst,
+        "res_last": res_last, "ru": ru, "rv": rv}
+
+
+def _is_terminal(status: int) -> bool:
+    return status not in (SolverStatus.RUNNING, SolverStatus.EXCESS_ITER)
+
+
+def initial_status(check, u0, v0, k: int, aux, check_at_start: bool,
+                   dtype, device):
+    """(status, crits) a loop starts from. A checkpoint's saved criteria
+    are restored, not re-checked (the raw carry of an accel loop may lie
+    outside the cones, where the certificates mean nothing): EXCESS_ITER
+    becomes RUNNING, a terminal status stays terminal. Otherwise a seeded
+    start (warm start or resume) is checked, so an already-converged seed
+    stops at 0 iterations; a cold start is RUNNING."""
+    if aux is not None and "crits" in aux:
+        status = aux.get("status", SolverStatus.RUNNING)
+        if status == SolverStatus.EXCESS_ITER:
+            status = SolverStatus.RUNNING
+        return int(status), aux["crits"]
+    if check_at_start:
+        st, crits = check(u0, v0, k)
+        return int(st.item()), crits
+    return (int(SolverStatus.RUNNING),
+            torch.full((5,), float("inf"), dtype=dtype, device=device))
+
+
+_LOOPS = {"": _run_plain, "halpern": _run_halpern,
+          "restart": _run_restarted}
+
+# the epoch state each accel loop needs to resume exactly
+_EPOCH_KEYS = {
+    "": set(),
+    "halpern": {"au", "av", "ke", "fp_rst", "fp_last", "ru", "rv"},
+    "restart": {"su", "sv", "ke", "res_rst", "res_last", "ru", "rv"},
+}
 
 
 def run_loop(update, check, u0, v0, *, cap: int, check_period: int,
-             accel: str, check_at_start: bool, dtype, device):
+             accel: str, check_at_start: bool, dtype, device, k_start=0,
+             aux=None, log_period: int = 0):
     """The pdhg loop shared by :func:`solve_jit` and the megakernel's plain
-    version: ``(u, v, k, status, crits)`` after iterating from (u0, v0)."""
-    if check_at_start:
-        # an already-converged seed terminates at 0 iterations
-        st, crits = check(u0, v0, 0)
-        status = int(st.item())
-    else:
-        status = int(SolverStatus.RUNNING)
-        crits = torch.full((5,), float("inf"), dtype=dtype, device=device)
-    run = {"": _run_plain, "halpern": _run_halpern,
-           "restart": _run_restarted}.get(accel)
+    version: ``(u, v, k, status, crits, aux)`` after iterating from
+    (u0, v0) at the global count ``k_start`` up to ``cap``; ``aux`` a
+    checkpoint's epoch state, or None."""
+    run = _LOOPS.get(accel)
     if run is None:
         raise ValueError(f"unknown accel {accel!r}")
-    return run(update, check, u0, v0, 0, status, crits, cap, check_period)
+    status, crits = initial_status(check, u0, v0, k_start, aux,
+                                   check_at_start, dtype, device)
+    return run(update, check, u0, v0, k_start, status, crits, cap,
+               check_period, aux=aux, log_period=log_period)
 
 
-def _check_supported(param: SolverParam, resume_state, row_sharding):
-    """Raise for every feature of the JAX solve_jit this slice does not
-    port, naming its ROADMAP item; never fall back silently. Runs after
-    the fast profile is resolved."""
+def _check_supported(param: SolverParam, row_sharding):
+    """Raise for every feature of the JAX solve_jit the port does not
+    have yet, naming its ROADMAP item; never fall back silently. Runs
+    after the fast profile is resolved."""
     if param.method not in ("pdhg", "direct"):
         raise ValueError(f"unknown method {param.method!r}")
     if param.accel not in ("", "halpern", "restart"):
         raise ValueError(f"unknown accel {param.accel!r}")
-    if resume_state is not None:
-        raise _not_ported("resume_state", "5")
-    if param.return_state:
-        raise _not_ported("return_state", "5")
     if row_sharding is not None:
         raise _not_ported("row_sharding", "14")
-    if param.log_period > 0:
-        raise _not_ported("log_period > 0", "9")
 
 
 def _on_card(a_op: LinOp) -> bool:
@@ -497,7 +644,7 @@ def solve_jit(
                 "method='direct' does not honor row_sharding (mesh "
                 "constraints are a pdhg-engine feature); use "
                 "method='pdhg', or drop the sharding")
-    _check_supported(param, resume_state, row_sharding)
+    _check_supported(param, row_sharding)
     if not isinstance(a_op, DenseOp):
         raise _not_ported("structured operators", "10")
     device = a_op.a.device
@@ -506,7 +653,8 @@ def solve_jit(
     if param.method == "direct":
         from totsu_tpu_torch.solver.direct import solve_direct_jit
         return solve_direct_jit(c, a_op, b, cone, param,
-                                warm_start=warm_start)
+                                warm_start=warm_start,
+                                resume_state=resume_state)
     dtype = torch.promote_types(c.dtype, b.dtype)
     c = c.to(dtype)
     b = b.to(dtype)
@@ -563,7 +711,25 @@ def solve_jit(
     u0 = (zeros(n), zeros(m), zeros(m),
           torch.tensor(1.0, dtype=dtype, device=device))
     v0 = (zeros(n), zeros(m), torch.tensor(0.0, dtype=dtype, device=device))
-    if warm_start is not None:
+    k_start = 0
+    resume_aux = None
+    if resume_state is not None:
+        u0, v0, k_start, resume_aux = _unpack_resume(
+            resume_state, "pdhg", param.accel, device, dtype)
+        taken = (u0, v0)
+        if resume_aux is not None \
+                and not _EPOCH_KEYS[param.accel] <= set(resume_aux):
+            # no epoch state for this loop (e.g. a megakernel checkpoint):
+            # a fresh epoch
+            resume_aux = None
+        if resume_aux is not None and "ru" in resume_aux \
+                and not _is_terminal(resume_aux.get("status",
+                                                    SolverStatus.RUNNING)):
+            # the raw carry the uninterrupted loop would continue from; a
+            # terminal checkpoint keeps its taken pair, the point its
+            # saved criteria describe
+            u0, v0 = resume_aux["ru"], resume_aux["rv"]
+    elif warm_start is not None:
         ws_x, ws_y = warm_start
         ux0, uy0 = u0[0], u0[1]
         if ws_x is not None:
@@ -590,28 +756,55 @@ def solve_jit(
     if param.accel == "halpern" and relax != 1.0:
         raise ValueError("accel='halpern' requires relax=1.0")
 
+    seeded = warm_start is not None or resume_state is not None
     if _mega_choice(param, a_op, cone, dtype):
         from totsu_tpu_torch.ops.kernels import megakernel
+        # an accel checkpoint of the host loop seeds the kernel from its
+        # taken pair, not the raw carry: the kernel starts a fresh epoch
+        # anyway, and its check at the seed needs a point inside the cones
+        seed_u, seed_v = taken if resume_state is not None else (u0, v0)
         u, v, k, status, crits = megakernel.solve_mega(
-            a_op.a, c_it, b_it, c, b, dp_tau, dp_sigma, u0, v0, cone,
-            eps_acc=eps_acc, eps_inf=eps_inf, eps_zero=float(param.eps_zero),
-            max_iter=max_iter, check_period=check_period, relax=relax,
-            accel=param.accel, sb=sb, sc=sc,
-            check_at_start=warm_start is not None)
+            a_op.a, c_it, b_it, c, b, dp_tau, dp_sigma, seed_u, seed_v,
+            cone, eps_acc=eps_acc, eps_inf=eps_inf,
+            eps_zero=float(param.eps_zero), max_iter=max_iter,
+            check_period=check_period, relax=relax, accel=param.accel,
+            sb=sb, sc=sc, check_at_start=seeded)
+        # the kernel counts per call and exports no epoch: the checkpoint
+        # carries an empty aux, and a resume starts a fresh epoch
+        k, aux = k_start + k, None
     else:
+        # the global cap: a resumed loop continues from k_start, and
+        # max_iter bounds the iterations of this call
+        cap = k_start + max_iter
         update = _make_update(mv_op, c_it, b_it, dp_tau, dp_sigma, cone,
                               relax)
         check = _make_check(a_op, c, b, norm_b, norm_c, sb, sc, eps_acc,
-                            eps_inf, eps_zero, max_iter)
-        u, v, k, status, crits = run_loop(
-            update, check, u0, v0, cap=max_iter, check_period=check_period,
-            accel=param.accel, check_at_start=warm_start is not None,
-            dtype=dtype, device=device)
-    return _finish(u, k, status, crits, eps_zero, sb, sc, equil_d, equil_e)
+                            eps_inf, eps_zero, cap)
+        u, v, k, status, crits, aux = run_loop(
+            update, check, u0, v0, cap=cap, check_period=check_period,
+            accel=param.accel, check_at_start=seeded, dtype=dtype,
+            device=device, k_start=k_start, aux=resume_aux,
+            log_period=param.log_period)
+    return _finish(u, k - k_start, status, crits, eps_zero, sb, sc, equil_d,
+                   equil_e, state=_checkpoint(param, "pdhg", u, v, k, aux,
+                                              status, crits))
 
 
-def _finish(u, k, status, crits, eps_zero, sb, sc, equil_d,
-            equil_e) -> SolveResult:
+def _checkpoint(param: SolverParam, engine: str, u, v, k: int, aux, status,
+                crits) -> Optional[ResumeState]:
+    """The ResumeState of ``param.return_state`` (else None). ``aux`` None
+    means no exportable epoch (the megakernel): an empty dict. Otherwise
+    the last criteria and status ride along, so a resume restores them
+    instead of checking a possibly reflected seed."""
+    if not param.return_state:
+        return None
+    aux = {} if aux is None else {**aux, "crits": crits, "status": status}
+    return ResumeState(u=u, v=v, k=k, aux=aux, engine=engine,
+                       accel=param.accel)
+
+
+def _finish(u, iters, status, crits, eps_zero, sb, sc, equil_d,
+            equil_e, state=None) -> SolveResult:
     """Scale the solution by 1/tau on the tau > eps_zero exit path
     (certificates are returned unscaled), undo normalization and
     equilibration, pack the result."""
@@ -627,17 +820,19 @@ def _finish(u, k, status, crits, eps_zero, sb, sc, equil_d,
         sol_x = sol_x * equil_e
         sol_y = sol_y * equil_d
     return SolveResult(
-        x=sol_x, y=sol_y, status=int(status), iters=int(k),
+        x=sol_x, y=sol_y, status=int(status), iters=int(iters),
         cri_pri=crits[0], cri_dual=crits[1], cri_gap=crits[2],
-        cri_unbdd=crits[3], cri_infeas=crits[4])
+        cri_unbdd=crits[3], cri_infeas=crits[4], state=state)
 
 
 def _mega_choice(param: SolverParam, a_op: LinOp, cone: ConeLayout,
                  dtype) -> bool:
     """Resolve SolverParam.kernel: '' keeps the host loop; 'mega' forces
     the whole-solve kernel (its plain version on CPU tensors) and raises
-    outside its envelope; 'auto' takes the kernel on a CUDA device inside
-    the supported + fitting envelope."""
+    outside its envelope, and prints no progress lines; 'auto' takes the
+    kernel on a CUDA device inside the supported + fitting envelope,
+    except with progress logging, where it warns and keeps the host
+    loop."""
     if param.kernel not in ("", "auto", "mega"):
         raise ValueError(f"unknown kernel {param.kernel!r}")
     if param.kernel == "":
@@ -656,7 +851,18 @@ def _mega_choice(param: SolverParam, a_op: LinOp, cone: ConeLayout,
                 "RSOC/exp/pow cones, accel in ('', 'halpern'), no "
                 "matvec_dtype")
         return True
-    return ok and a_op.a.device.type == "cuda"
+    if ok and _on_card(a_op) and param.log_period != 0:
+        # loud, not silent: the kernel cannot print, and losing it costs
+        # the host loop's launch overhead; _resolve_fast_profile knows
+        # this rule and routes logged fast-profile solves elsewhere
+        import warnings
+        warnings.warn(
+            "kernel='auto': progress logging (log_period > 0) disables the "
+            "CUDA megakernel (it cannot print); set log_period=0 to "
+            "re-enable it, or kernel='' to silence this warning.",
+            RuntimeWarning, stacklevel=3)
+        return False
+    return ok and _on_card(a_op)
 
 
 def solve_sequence(problems, param: SolverParam = SolverParam(),
@@ -694,13 +900,54 @@ def solve(
     """Host-facing solve: raises :class:`SolverError` on non-convergence
     like the reference's ``Result`` (solver.rs:285-322). Use
     :func:`solve_jit` for the never-raising version; ``device`` as
-    there."""
+    there.
+
+    ``chunk_iters=N`` runs the solve as a chain of N-iteration
+    :func:`solve_jit` calls stitched with exact ``resume_state``
+    checkpoints (``param.max_iter`` caps the total exactly; the tail
+    chunk is shortened to fit). The host loops and the direct engine
+    resume exactly, the accel epochs and the direct engine's cached
+    solve included, so the chunked solve takes the same iterations to the
+    same x; megakernel chunks start a fresh accel epoch (the kernel
+    exports none)."""
     if polish:
         raise _not_ported("polish=True", "13")
     if chunk_iters is not None:
-        raise _not_ported("chunk_iters", "9")
-    result = solve_jit(c, a, b, cone, param, warm_start=warm_start,
-                       row_sharding=row_sharding, device=device)
+        result = _solve_chunked(c, a, b, cone, param, warm_start,
+                                row_sharding, int(chunk_iters), device)
+    else:
+        result = solve_jit(c, a, b, cone, param, warm_start=warm_start,
+                           row_sharding=row_sharding, device=device)
     if result.status != SolverStatus.CONVERGED:
         raise SolverError(result.status)
     return result
+
+
+def _solve_chunked(c, a, b, cone, param, warm_start, row_sharding,
+                   chunk_iters: int, device) -> SolveResult:
+    """solve(..., chunk_iters=N): the first chunk takes ``warm_start``,
+    each later one the previous chunk's checkpoint; a chunk that ends
+    RUNNING or EXCESS_ITER at the cap reports EXCESS_ITER. The result's
+    ``iters`` is the total, and it keeps ``state`` only if ``param``
+    asks for it."""
+    if chunk_iters <= 0:
+        raise ValueError(f"chunk_iters must be positive, got {chunk_iters}")
+    cap = param.bounded_max_iter
+    p_chunk = dataclasses.replace(param, max_iter=min(chunk_iters, cap),
+                                  return_state=True)
+    a_op = as_linop(a, device)  # A goes to its device once, not per chunk
+    res = solve_jit(c, a_op, b, cone, p_chunk, warm_start=warm_start,
+                    row_sharding=row_sharding)
+    total = res.iters
+    while res.status == SolverStatus.EXCESS_ITER and total < cap:
+        p_i = dataclasses.replace(p_chunk,
+                                  max_iter=min(chunk_iters, cap - total))
+        res = solve_jit(c, a_op, b, cone, p_i, resume_state=res.state,
+                        row_sharding=row_sharding)
+        total += res.iters
+    status = res.status
+    if status == SolverStatus.RUNNING:
+        status = int(SolverStatus.EXCESS_ITER)
+    return dataclasses.replace(
+        res, status=status, iters=total,
+        state=res.state if param.return_state else None)

@@ -26,18 +26,21 @@ The JAX ``lax.while_loop`` becomes a host loop, as in the pdhg engine:
 ``check_period`` updates, one check (whose ``dual_matvec`` is kernel 1 on
 the card; exp/pow blocks of ``Pi_C`` run kernel B), one host read of the
 status. The indirect mode (CG on structured operators) waits for ROADMAP
-§1 item 10, resume state for item 5.
+§1 item 10. A checkpoint (``return_state``) carries the cached solve and
+the Sherman-Morrison border, so a resumed solve skips the O(n^3) build.
 """
 
 import contextlib
 import dataclasses
+from typing import Optional
 
 import torch
 
 from totsu_tpu_torch.solver.cone import ConeLayout
 from totsu_tpu_torch.solver.conic import (
-    SolveResult, _artificial_restart, _finish, _halpern_weights,
-    _make_check, _not_ported, _np_dtype, _run_plain)
+    SolveResult, _artificial_restart, _checkpoint, _finish, _halpern_weights,
+    _is_terminal, _make_check, _not_ported, _np_dtype, _run_plain,
+    _unpack_resume, initial_status)
 from totsu_tpu_torch.solver.operator import DenseOp
 from totsu_tpu_torch.solver.params import (SolverParam, SolverStatus,
                                            effective_eps_inf)
@@ -83,6 +86,28 @@ class SpdSolve:
     def refine_steps(self) -> int:
         return 0 if self.cholesky else 2
 
+    def aux(self) -> dict:
+        """The checkpoint's entries for this cache."""
+        key = "chol_c" if self.cholesky else "prec"
+        return {key: self.factor, "ns_steps": self.ns_steps,
+                "refine_steps": self.refine_steps}
+
+    @classmethod
+    def from_aux(cls, aux: dict, dtype) -> Optional["SpdSolve"]:
+        """The cache a checkpoint carries for an iterate ``dtype`` (the
+        lower Cholesky factor in f64, the inverse otherwise), or None."""
+        cholesky = dtype == torch.float64
+        factor = aux.get("chol_c" if cholesky else "prec")
+        if factor is None:
+            return None
+        out = cls(factor, cholesky, int(aux.get("ns_steps", 0)))
+        if int(aux.get("refine_steps", out.refine_steps)) \
+                != out.refine_steps:
+            raise ValueError("resume_state's cache takes "
+                             f"{aux['refine_steps']} refinement steps, this "
+                             f"solve {out.refine_steps}")
+        return out
+
     def apply_inv(self, r):
         if self.cholesky:
             return torch.cholesky_solve(r[:, None], self.factor)[:, 0]
@@ -121,7 +146,7 @@ def spd_cache(amat) -> SpdSolve:
 
 
 def _run_halpern_dr(t_map, pair, check, z0, k: int, status: int, crits,
-                    cap: int, check_period: int):
+                    cap: int, check_period: int, aux=None):
     """Restarted Halpern iteration on the DR variable z = u~ - v,
 
         z_{k+1} = (k+1)/(k+2) * (2 T(z_k) - z_k) + 1/(k+2) * z_anchor,
@@ -132,13 +157,20 @@ def _run_halpern_dr(t_map, pair, check, z0, k: int, status: int, crits,
     Termination is evaluated at the Moreau pair of T(z), projected and
     feasible, so the statuses keep their certificate meaning. The restart
     decision reaches the host with the status in one transfer per
-    check. Returns (z, k, status, crits)."""
+    check. ``aux`` (a checkpoint's epoch) restores the anchor and the
+    counters. Returns (z, k, status, crits, aux), the returned ``aux``
+    holding the raw carry ``z`` the loop would continue from (z itself
+    takes T(z) on exit)."""
     dtype = z0.dtype
     ndt = _np_dtype(dtype)
-    z = anchor = z0
-    inf = torch.tensor(float("inf"), dtype=dtype, device=z0.device)
-    fp_rst, fp_last = inf, inf
-    ke = 0
+    z = rz = z0
+    if aux is not None:
+        anchor, ke = aux["anchor"], aux["ke"]
+        fp_rst, fp_last = aux["fp_rst"], aux["fp_last"]
+    else:
+        anchor, ke = z0, 0
+        fp_rst = fp_last = torch.tensor(float("inf"), dtype=dtype,
+                                        device=z0.device)
     while status == SolverStatus.RUNNING and k < cap:
         for _ in range(check_period):
             tz = t_map(z)
@@ -154,6 +186,7 @@ def _run_halpern_dr(t_map, pair, check, z0, k: int, status: int, crits,
             | _artificial_restart(ndt, ke, k, check_period)
         status, restart = (int(x) for x in
                            torch.stack([st, restart.to(torch.int32)]).tolist())
+        rz = tz if restart else z
         if restart or status != SolverStatus.RUNNING:
             z = tz
         if restart:
@@ -161,7 +194,9 @@ def _run_halpern_dr(t_map, pair, check, z0, k: int, status: int, crits,
             ke = 0
             fp_rst = fp
         fp_last = fp
-    return z, k, status, crits
+    return z, k, status, crits, {"anchor": anchor, "ke": ke,
+                                 "fp_rst": fp_rst, "fp_last": fp_last,
+                                 "z": rz}
 
 
 def solve_direct_jit(c, a_op, b, cone: ConeLayout,
@@ -173,15 +208,12 @@ def solve_direct_jit(c, a_op, b, cone: ConeLayout,
     if not isinstance(a_op, DenseOp):
         raise _not_ported("the indirect engine (method='direct' on a "
                           "structured operator)", "10")
-    if resume_state is not None:
-        raise _not_ported("resume_state", "5")
-    if param.return_state:
-        raise _not_ported("return_state", "5")
     with full_f32_matmul():
-        return _solve_direct(c, a_op, b, cone, param, warm_start)
+        return _solve_direct(c, a_op, b, cone, param, warm_start,
+                             resume_state)
 
 
-def _solve_direct(c, a_op, b, cone, param, warm_start):
+def _solve_direct(c, a_op, b, cone, param, warm_start, resume_state):
     dtype = torch.promote_types(c.dtype, b.dtype)
     device = a_op.a.device
     c = c.to(dtype)
@@ -238,7 +270,14 @@ def _solve_direct(c, a_op, b, cone, param, warm_start):
     u0 = torch.zeros(nm1, dtype=dtype, device=device)
     u0[-1] = 1.0
     v0 = u0.clone()
-    if warm_start is not None:
+    k_start = 0
+    resume_aux = None
+    # the resume is unpacked before the cache is built: a checkpoint
+    # carries the cache, and a resumed solve skips the O(n^3) build
+    if resume_state is not None:
+        u0, v0, k_start, resume_aux = _unpack_resume(
+            resume_state, "direct", param.accel, device, dtype)
+    elif warm_start is not None:
         ws_x, ws_y = warm_start
         if ws_x is not None:
             ws_x = torch.as_tensor(ws_x, dtype=dtype, device=device)
@@ -259,7 +298,8 @@ def _solve_direct(c, a_op, b, cone, param, warm_start):
         v0 = torch.zeros(nm1, dtype=dtype, device=device)
         v0[n:n + m] = cone.project(b_it - a_op.matvec(u0[:n]), dual=False)
 
-    cache = spd_cache(amat)
+    aux_c = resume_aux if resume_aux is not None else {}
+    cache = SpdSolve.from_aux(aux_c, dtype) or spd_cache(amat)
 
     def spd_solve(rhs):
         z = cache.apply_inv(rhs)
@@ -274,8 +314,11 @@ def _solve_direct(c, a_op, b, cone, param, warm_start):
 
     # the Sherman-Morrison border g = M^{-1} h
     h = torch.cat([c_it, b_it])
-    gh = torch.cat(m_solve(c_it, b_it))
-    denom = 1.0 + torch.dot(h, gh)
+    if "gh" in aux_c:
+        gh, denom = aux_c["gh"], aux_c["denom"]
+    else:
+        gh = torch.cat(m_solve(c_it, b_it))
+        denom = 1.0 + torch.dot(h, gh)
 
     def iq_solve(w):
         # solve (I + Q) z = w, z = (z1 (n), z2 (m), ztau)
@@ -308,30 +351,47 @@ def _solve_direct(c, a_op, b, cone, param, warm_start):
         pu = proj_c(z)
         return pu, pu - z
 
+    # the global cap: a resumed loop continues from k_start, and max_iter
+    # bounds the iterations of this call
+    cap = k_start + max_iter
     pdhg_check = _make_check(a_op, c, b, norm_b, norm_c, sb, sc,
-                             param.eps_acc, eps_inf, eps_zero, max_iter)
+                             param.eps_acc, eps_inf, eps_zero, cap)
 
     def check(u, v, k):
         # x = u.x, y = u.y, tau = u.tau; the slack s is v's y block
         return pdhg_check((u[:n], u[n:n + m], v[n:n + m], u[-1]), None, k)
 
-    if warm_start is not None:
-        # an already-converged seed terminates at 0 iterations
-        st, crits = check(u0, v0, 0)
-        status = int(st.item())
-    else:
-        status = int(SolverStatus.RUNNING)
-        crits = torch.full((5,), float("inf"), dtype=dtype, device=device)
+    status, crits = initial_status(
+        check, u0, v0, k_start, resume_aux,
+        warm_start is not None or resume_state is not None, dtype, device)
+    aux = {**cache.aux(), "gh": gh, "denom": denom}
     if param.accel == "halpern":
-        # seed z0 = u~_0 - v0, what the first pair step would produce (not
-        # u0 - v0 = 0, the trivial fixed point of the embedding)
-        z0 = iq_solve(u0 + v0) - v0
-        z, k, status, crits = _run_halpern_dr(
-            t_map, pair, check, z0, 0, status, crits, max_iter,
-            check_period)
-        u, _ = pair(z)
+        hal_keys = {"anchor", "ke", "fp_rst", "fp_last", "z"}
+        hal_resume = resume_aux if resume_aux is not None \
+            and hal_keys <= set(resume_aux) else None
+        if hal_resume is not None:
+            # exact resume from the raw DR carry saved at the checkpoint
+            z0 = hal_resume["z"]
+        else:
+            # seed z0 = u~_0 - v0, what the first pair step would produce
+            # (not u0 - v0 = 0, the trivial fixed point of the embedding)
+            z0 = iq_solve(u0 + v0) - v0
+        z, k, status, crits, hal_aux = _run_halpern_dr(
+            t_map, pair, check, z0, k_start, status, crits, cap,
+            check_period, aux=hal_resume)
+        u, v = pair(z)
+        if hal_resume is not None and _is_terminal(
+                hal_resume.get("status", SolverStatus.RUNNING)):
+            # a terminal checkpoint's loop exits at once with the raw
+            # carry, whose pair is not the one the checkpoint presented:
+            # keep the checkpointed pair
+            u, v = u0, v0
+        aux.update(hal_aux)
     else:
-        u, _, k, status, crits = _run_plain(
-            update, check, u0, v0, 0, status, crits, max_iter, check_period)
-    return _finish((u[:n], u[n:n + m], None, u[-1]), k, status, crits,
-                   eps_zero, sb, sc, equil_d, equil_e)
+        u, v, k, status, crits, _ = _run_plain(
+            update, check, u0, v0, k_start, status, crits, cap,
+            check_period)
+    return _finish((u[:n], u[n:n + m], None, u[-1]), k - k_start, status,
+                   crits, eps_zero, sb, sc, equil_d, equil_e,
+                   state=_checkpoint(param, "direct", u, v, k, aux, status,
+                                     crits))

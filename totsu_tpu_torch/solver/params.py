@@ -2,12 +2,9 @@
 
 Port of ``totsu_tpu.solver.params``: the same fields with the same
 defaults and meaning, so a parameter set carries across field by field
-(``totsu_tpu_torch.interop.param_from_reference``). Fields whose feature
-has no counterpart in the port yet (``return_state``, ``log_period``)
-are kept so the surface matches; the solver raises
-``NotImplementedError`` naming the ROADMAP item when one of them is set.
-``cg_precond`` belongs to the indirect engine (ROADMAP item 10) and has
-no effect on the dense engines.
+(``totsu_tpu_torch.interop.param_from_reference``). ``cg_precond``
+belongs to the indirect engine (ROADMAP item 10) and has no effect on the
+dense engines.
 """
 
 import dataclasses
@@ -31,7 +28,9 @@ class SolverParam:
     #: of :func:`effective_eps_inf`, an explicit value is honored verbatim.
     eps_inf: Optional[float] = None
     eps_zero: float = 1e-12
-    #: Progress logging period; only 0 (off) is supported by the port.
+    #: Progress logging period: 0 = off; else the pdhg host loops print a
+    #: line on every check past each multiple of it (the megakernel and
+    #: the direct engine print nothing).
     log_period: int = 0
     #: Run the termination test every this many iterations.
     check_period: int = 1
@@ -50,7 +49,8 @@ class SolverParam:
     #: b/c norm normalization; ``None`` = engine default (off for pdhg, on
     #: for direct).
     normalize: Optional[bool] = None
-    #: Return the raw iteration state (not yet ported).
+    #: Return the iteration state as ``SolveResult.state`` (a
+    #: ``ResumeState`` that ``resume_state`` continues exactly).
     return_state: bool = False
     #: Storage dtype of A inside the update matvecs (e.g. 'bfloat16');
     #: the criteria keep the full-precision A.
