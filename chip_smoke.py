@@ -157,6 +157,136 @@ def make_qp(n, seed=0):
     return np.diag(p_diag), q, g, h
 
 
+def make_tiles_lp(n=65_536, bm=128, seed=11):
+    """bench.py's n = 65,536 from-tiles LP (the ``grp_ell`` row
+    ``ell_n65536_tiles_*``) at any n divisible by bm: a block-tridiagonal
+    band of (bm, bm) tiles, each N(0, 1) / sqrt(3 bm), a feasible point
+    x_feas; the LP [band; I; -I] x <= (band x_feas + U(0, 1) + 0.1, 10,
+    10), f32. Returns (tiles, b, c), the tiles as a dict (tile_row,
+    tile_col) -> array; nothing dense is ever built."""
+    rng = np.random.default_rng(seed)
+    nb = n // bm
+    tiles = {}
+    x_feas = rng.normal(size=n).astype(np.float32)
+    ax = np.zeros(n, np.float32)
+    for i in range(nb):
+        for j in (i - 1, i, i + 1):
+            if 0 <= j < nb:
+                t = (rng.normal(size=(bm, bm)) / np.sqrt(3 * bm)
+                     ).astype(np.float32)
+                tiles[(i, j)] = t
+                ax[i * bm:(i + 1) * bm] += t @ x_feas[j * bm:(j + 1) * bm]
+    b = np.concatenate([ax + rng.random(n).astype(np.float32) + 0.1,
+                        np.full(n, 10.0, np.float32),
+                        np.full(n, 10.0, np.float32)])
+    c = rng.normal(size=n).astype(np.float32)
+    return tiles, b, c
+
+
+def tiles_box_csr(tiles, n, bm):
+    """[band; I; -I] of ``make_tiles_lp`` as a scipy CSR matrix, built
+    from the tiles (never dense): the host's copy for the f64 residuals."""
+    from scipy import sparse
+    keys = sorted(tiles)
+    indptr = np.searchsorted([i for i, _ in keys], np.arange(n // bm + 1))
+    band = sparse.bsr_matrix(
+        (np.stack([tiles[k] for k in keys]),
+         np.array([j for _, j in keys]), indptr), shape=(n, n))
+    eye = sparse.identity(n, dtype=np.float32, format="csr")
+    return sparse.vstack([band.tocsr(), eye, -eye]).tocsr()
+
+
+def make_banded_box_lp(n, k_tiles=2, tile=128, seed=0):
+    """benchmarks/benchmark_indirect.py's make_banded_box_lp: feasible and
+    bounded banded LP [band; I; -I] x <= [b; 10; 10], f32."""
+    rng = np.random.default_rng(seed)
+    nb = n // tile
+    a = np.zeros((3 * n, n), dtype=np.float32)
+    for i in range(nb):
+        for d in range(k_tiles):
+            j = (i + d) % nb
+            a[i * tile:(i + 1) * tile, j * tile:(j + 1) * tile] = \
+                rng.normal(size=(tile, tile)).astype(np.float32) / np.sqrt(
+                    k_tiles * tile)
+    a[n:2 * n] = np.eye(n, dtype=np.float32)
+    a[2 * n:] = -np.eye(n, dtype=np.float32)
+    x0 = rng.normal(size=n)
+    b = np.concatenate([
+        (a[:n] @ x0 + rng.random(n) + 0.1),
+        np.full(n, 10.0), np.full(n, 10.0)]).astype(np.float32)
+    c = rng.normal(size=n).astype(np.float32)
+    return c, a, b
+
+
+def make_banded_lp(n, k_tiles, tile=128, seed=0):
+    """benchmarks/benchmark_sparse.py's make_banded_lp: block-banded
+    feasible LP, k_tiles (tile, tile) tiles per tile-row along the
+    diagonal band (wrap-around), dense inside tiles, f32."""
+    rng = np.random.default_rng(seed)
+    nb = n // tile
+    a = np.zeros((n, n), dtype=np.float32)
+    for i in range(nb):
+        for d in range(k_tiles):
+            j = (i + d) % nb
+            a[i * tile:(i + 1) * tile, j * tile:(j + 1) * tile] = \
+                rng.normal(size=(tile, tile)).astype(np.float32) / np.sqrt(
+                    k_tiles * tile)
+    x0 = rng.normal(size=n)
+    b = (a @ x0 + rng.random(n) + 0.1).astype(np.float32)
+    c = rng.normal(size=n).astype(np.float32)
+    return c, a, b
+
+
+def make_stencil_op(tt, n, device, adjoint=True):
+    """benchmarks/benchmark_indirect.py's make_stencil_op in torch: a
+    circulant 3-point stencil plus box rows as one CustomOp (m = 3n), f32,
+    with hand-derived absolute sums; ``adjoint=False`` leaves the adjoint
+    to autograd."""
+    w = torch.tensor([1.0, -0.45, -0.55], dtype=torch.float32,
+                     device=device)
+
+    def mv(params, x):
+        s = params[0] * x + params[1] * torch.roll(x, 1) \
+            + params[2] * torch.roll(x, -1)
+        return torch.cat([s, x, -x])
+
+    def rmv(params, y):
+        n_ = y.shape[0] // 3
+        ys, yp, ym = y[:n_], y[n_:2 * n_], y[2 * n_:]
+        return (params[0] * ys + params[1] * torch.roll(ys, -1)
+                + params[2] * torch.roll(ys, 1)) + yp - ym
+
+    absw = float(np.abs(np.array([1.0, -0.45, -0.55], np.float32)).sum())
+
+    def col_abssum(params):
+        return torch.full((n,), absw + 2.0, dtype=torch.float32,
+                          device=device)
+
+    def row_abssum(params):
+        return torch.cat([torch.full((n,), absw, dtype=torch.float32,
+                                     device=device),
+                          torch.ones(2 * n, dtype=torch.float32,
+                                     device=device)])
+
+    return tt.CustomOp(params=w, m=3 * n, n=n, matvec_fn=mv,
+                       rmatvec_fn=rmv if adjoint else None,
+                       col_abssum_fn=col_abssum, row_abssum_fn=row_abssum)
+
+
+def make_stencil_lp(tt, n, device, seed=1, adjoint=True):
+    """benchmarks/benchmark_indirect.py's make_stencil_lp in torch:
+    (c, op, b), f32 on ``device``."""
+    rng = np.random.default_rng(seed)
+    op = make_stencil_op(tt, n, device, adjoint=adjoint)
+    x0 = torch.tensor(rng.normal(size=n), dtype=torch.float32, device=device)
+    bs = op.matvec(x0)[:n] + torch.tensor(rng.random(n) + 0.1,
+                                          dtype=torch.float32, device=device)
+    b = torch.cat([bs, torch.full((2 * n,), 10.0, dtype=torch.float32,
+                                  device=device)])
+    c = torch.tensor(rng.normal(size=n), dtype=torch.float32, device=device)
+    return c, op, b
+
+
 def make_logreg(m, n, lam=0.1, seed=3):
     """examples/logreg_expcone.py: its data generator and ``build``, in
     numpy. L1-regularised logistic regression over m samples and n
@@ -630,8 +760,12 @@ def lp_kkt(c, a, b, x, y):
     """An LP's residuals in f64 on the host, from x and y (A x + s = b,
     s >= 0; y >= 0): primal ||max(A x - b, 0)|| / (1 + ||b||), dual
     ||(A^T y + c, min(y, 0))|| / (1 + ||c||) and the gap |c^T x + b^T y|
-    / (1 + |c^T x| + |b^T y|)."""
-    c, a, b, x, y = (np.asarray(v, dtype=np.float64) for v in (c, a, b, x, y))
+    / (1 + |c^T x| + |b^T y|). ``a`` dense, or a scipy sparse matrix
+    (kept sparse)."""
+    from scipy import sparse
+    c, b, x, y = (np.asarray(v, dtype=np.float64) for v in (c, b, x, y))
+    a = a.astype(np.float64) if sparse.issparse(a) \
+        else np.asarray(a, dtype=np.float64)
     pri = np.linalg.norm(np.maximum(a @ x - b, 0.0)) / (1.0 + np.linalg.norm(b))
     dual = np.linalg.norm(np.concatenate([a.T @ y + c, np.minimum(y, 0.0)])) \
         / (1.0 + np.linalg.norm(c))
@@ -688,6 +822,400 @@ def logged_ks(iters, check_period, log_period, k_start=0):
     return [k for k in range(k_start + check_period, k_start + iters + 1,
                              check_period)
             if (k - check_period) % log_period < check_period]
+
+
+def kernel_rows(fn, calls=20):
+    """The profiler's kernel rows of ``calls`` calls of ``fn()``: (name,
+    device us per call), the longest first. A window can lose kernel
+    records, so each kernel counts at its mean time per record times its
+    records per call, rounded up (as in ``device_ms``)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / e.count
+             * -(-e.count // calls))
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.count > 0 and e.self_device_time_total > 0]
+    return sorted(rows, key=lambda r: -r[1])
+
+
+def operator_errors(op, dense, rng):
+    """``op`` against the dense twin of its ``to_dense()`` on the same
+    device: the largest error of to_dense against ``dense`` (the host's
+    numpy matrix), and of matvec, rmatvec, the absolute sums and maxima,
+    col_sqsum and diag_scale (through a matvec) against the twin, each
+    relative to the largest entry of its reference."""
+    import totsu_tpu_torch as tt
+    m, n = dense.shape
+    dev = op.device
+    got = op.to_dense()
+    twin = tt.DenseOp(got)
+
+    def vec(k, lo=-1.0, hi=1.0):
+        return torch.tensor(rng.uniform(lo, hi, size=k), dtype=got.dtype,
+                            device=dev)
+
+    x, y, d, e = vec(n), vec(m), vec(m, 0.5, 1.5), vec(n, 0.5, 1.5)
+    pairs = {
+        "to_dense": (got, torch.from_numpy(dense).to(dev)),
+        "matvec": (op.matvec(x), twin.matvec(x)),
+        "rmatvec": (op.rmatvec(y), twin.rmatvec(y)),
+        "col_abssum": (op.col_abssum(), twin.col_abssum()),
+        "row_abssum": (op.row_abssum(), twin.row_abssum()),
+        "row_absmax": (op.row_absmax(), twin.row_absmax()),
+        "col_absmax": (op.col_absmax(), twin.col_absmax()),
+        "col_sqsum": (op.col_sqsum(), twin.col_sqsum()),
+        "diag_scale": (op.diag_scale(d, e).matvec(x),
+                       twin.diag_scale(d, e).matvec(x)),
+    }
+    return {k: float((a - b).abs().max() / max(1.0, float(b.abs().max())))
+            for k, (a, b) in pairs.items()}
+
+
+def structured_phases(tt, dev, kernels, n20=65_536, n21=4096, n21b=8192,
+                      n22=65_536, pdhg_iters=2000):
+    """Phases 20-22: the structured operators and the indirect engine at
+    full width (the sizes are arguments only so that the flow can be
+    rehearsed small). Each path is driven once through solve() /
+    solve_jit(), the launch counts set to 0 just before it; returns the
+    kernels' launch counts over these paths (the structured path launches
+    none of the three kernels: a stack's dual_matvec is matvec plus
+    rmatvec, and the megakernel takes a dense A only)."""
+    import warnings
+    from scipy import sparse
+    from scipy.optimize import linprog
+    from totsu_tpu_torch.solver import conic as tconic
+    from totsu_tpu_torch.solver import direct as tdirect
+    from totsu_tpu_torch.solver.scaling import scaling_spread
+    f32 = torch.float32
+    rep = dataclasses.replace
+    counts = {k: 0 for k in kernels}
+
+    def count(runs):
+        for r in runs.values():
+            for k in kernels:
+                counts[k] += r[2][k]
+        return {k: sum(r[2][k] for r in runs.values()) for k in kernels}
+
+    def objective(cvec, res):
+        return float(np.dot(np.asarray(cvec, np.float64),
+                            res.x.double().cpu().numpy()))
+
+    def rel(got, want):
+        return abs(got - want) / max(1.0, abs(want))
+
+    # ---- phase 20: bench.py's from-tiles banded LP at full width: A =
+    # [band; I; -I] (m = 3n), the band block-tridiagonal from 128 x 128
+    # tiles, never dense; the indirect engine (method='direct', Halpern)
+    t0 = time.perf_counter()
+    tiles, b20, c20 = make_tiles_lp(n20)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    band = tt.BlockedEllOp.from_tiles(tiles, m=n20, n=n20, block=(128, 128),
+                                      device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    a20_host = tiles_box_csr(tiles, n20, 128)
+    del tiles
+    tile_mb = (band.blocks.numel() + band.blocks_t.numel()) * 4 / 1e6
+    ones = torch.ones(n20, dtype=f32, device=dev)
+    a20 = tt.VStackOp((band, tt.DiagOp(ones), tt.DiagOp(-ones)))
+    c20t = torch.from_numpy(c20).to(dev)
+    b20t = torch.from_numpy(b20).to(dev)
+    cone20 = tt.ConeLayout([tt.rpos(3 * n20)])
+    p20 = tt.SolverParam(max_iter=8000, eps_acc=1e-3, check_period=20,
+                         method="direct", accel="halpern")
+    kept = {}
+
+    def whole():
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            out = tt.solve(c20t, a20, b20t, cone20, p20)
+        kept["warnings"] = [str(w.message) for w in seen
+                            if issubclass(w.category, RuntimeWarning)]
+        return out
+
+    def split():
+        kept["first"] = tt.solve_jit(c20t, a20, b20t, cone20,
+                                     rep(p20, max_iter=100,
+                                         return_state=True))
+        return tt.solve_jit(c20t, a20, b20t, cone20, p20,
+                            resume_state=kept["first"].state)
+
+    spans20 = []
+    real20 = time_calls(tdirect, ("_run_halpern_dr",), spans20)
+    try:
+        runs20 = drive({
+            "whole": whole,
+            "repeat": lambda: tt.solve_jit(c20t, a20, b20t, cone20, p20),
+            "split at 100": split,
+            "chunks of 100": lambda: tt.solve(c20t, a20, b20t, cone20, p20,
+                                              chunk_iters=100),
+        }, kernels, spans20)
+    finally:
+        for name, fn in real20.items():
+            setattr(tdirect, name, fn)
+    cnt20 = count(runs20)
+    r20, wall20, _, sp20 = runs20["whole"]
+    check(r20.converged, f"tiles LP status {r20.status}")
+    kkt20 = lp_kkt(c20, a20_host, b20, r20.x.cpu().numpy(),
+                   r20.y.cpu().numpy())
+    check(max(kkt20) <= 2e-3, f"tiles LP residuals (primal, dual, gap) "
+          f"{kkt20}")
+    worst20 = float(r20.diag["cg_worst_rel"])
+    tol20 = float(r20.diag["cg_tol"])
+    check(worst20 <= 10.0 * tol20 and not any(
+        "CG" in w for w in kept["warnings"]),
+        f"tiles LP CG worst relative residual {worst20:.2e} vs target "
+        f"{tol20:.2e}; warnings {kept['warnings']}")
+    r_rep = runs20["repeat"][0]
+    r_spl = runs20["split at 100"][0]
+    r_chk = runs20["chunks of 100"][0]
+    first = kept["first"]
+    for what, r, iters in (("repeat", r_rep, r_rep.iters),
+                           ("split at 100", r_spl, first.iters + r_spl.iters),
+                           ("chunks of 100", r_chk, r_chk.iters)):
+        diff = bitwise_diff(r, r20)
+        check(iters == r20.iters and diff == [],
+              f"tiles LP {what}: {iters} iterations (whole {r20.iters}), "
+              f"differs in {diff}")
+    check(all(v == 0 for v in cnt20.values()),
+          f"the structured path launched kernels: {cnt20}")
+    loop20 = span_ms(sp20, "_run_halpern_dr")
+    x = torch.randn(n20, dtype=f32, device=dev)
+    y = torch.randn(n20, dtype=f32, device=dev)
+    ell_us = {}
+    for what, fn in (("matvec", lambda: band.matvec(x)),
+                     ("rmatvec", lambda: band.rmatvec(y))):
+        dev_ms = device_ms(fn)
+        ev_ms = stream_ms(fn)
+        rows = kernel_rows(fn)
+        # a copy of the tiles would take about as long as the product
+        check(all(t <= 0.25 * rows[0][1] for _, t in rows[1:]),
+              f"ELL {what}: a second kernel of tile size: {rows}")
+        ell_us[what] = (dev_ms, ev_ms, rows)
+    ell_bound = bound_ms(band.blocks.numel() * 4 + 8 * n20,
+                         2 * band.blocks.numel())
+    # 20 DR iterations of the loop alone, resumed from the split's
+    # checkpoint at k = 100, under torch.profiler
+    stats, out = [], []
+    real_loop = tdirect._run_halpern_dr
+
+    def profiled_loop(*args, **kwargs):
+        stats.append(profile_loop(
+            lambda: out.append(real_loop(*args, **kwargs)), 20))
+        return out[0]
+
+    tdirect._run_halpern_dr = profiled_loop
+    try:
+        r20p = tt.solve_jit(c20t, a20, b20t, cone20, rep(p20, max_iter=20),
+                            resume_state=first.state)
+    finally:
+        tdirect._run_halpern_dr = real_loop
+    wall_us, busy_us, nlaunch, top = stats[0]
+    d20 = r20.diag
+    print(f"phase 20 from-tiles banded LP n={n20} (A {3 * n20}x{n20} f32: "
+          f"[band; I; -I], {band.blocks.shape[0] * band.blocks.shape[2]} "
+          f"tile slots, {tile_mb:.1f} MB of tiles on the card; generated "
+          f"{gen_s:.1f} s, from_tiles {build_s:.1f} s), method='direct' "
+          f"Halpern: CONVERGED in {r20.iters} DR iterations, "
+          f"{1e3 * wall20:.1f} ms ({1e6 * wall20 / r20.iters:.1f} us per DR "
+          f"iteration; loop {loop20:.1f} ms, {1e3 * loop20 / r20.iters:.1f} "
+          f"us per iteration); CG: {d20['cg_setup_steps']} steps in the "
+          f"border's solve, {d20['cg_steps']} in {d20['cg_solves']} "
+          f"resolvents ({d20['cg_steps'] / r20.iters:.2f} per DR iteration,"
+          f" {d20['cg_steps'] / d20['cg_solves']:.2f} per resolvent), worst "
+          f"relative residual {worst20:.2e} vs target {tol20:.2e}; host f64 "
+          f"residuals primal {kkt20[0]:.2e}, dual {kkt20[1]:.2e}, gap "
+          f"{kkt20[2]:.2e}; repeat, split at {first.iters} + "
+          f"{r_spl.iters} and chunks of 100 bitwise the whole solve "
+          f"(chunked {1e3 * runs20['chunks of 100'][1]:.1f} ms); launches "
+          f"{cnt20}", flush=True)
+    def us(ms):
+        return "n/a" if ms is None else f"{1e3 * ms:.2f}"
+
+    for what, (dev_ms, ev_ms, rows) in ell_us.items():
+        print(f"  ELL {what} (n={n20}): device {us(dev_ms)} us per call "
+              f"(events {us(ev_ms)} us), bound {us(ell_bound[0])} us "
+              f"({ell_bound[1]}); "
+              "kernels " + ", ".join(f"{k[:48]} {t:.2f} us"
+                                     for k, t in rows[:3]), flush=True)
+    print(f"  profile 20 DR iterations from k={first.state.k}: "
+          f"{wall_us:.1f} us wall and {busy_us:.1f} us device-busy per "
+          f"iteration ({100 * busy_us / wall_us:.1f}% busy), {nlaunch:.1f} "
+          f"kernel launches per iteration, {r20p.diag['cg_steps'] / 20:.2f} "
+          "CG steps per iteration; top kernels (us per iteration) "
+          + ", ".join(f"{k} {t:.1f}" for k, t in top), flush=True)
+    del a20_host
+
+    # ---- phase 21: benchmark_indirect.py's banded box LP (n = 4096) as a
+    # BlockedEllOp under profile='fast' (routed to the indirect engine
+    # with Halpern, equil_iters unset), against HiGHS; then
+    # benchmark_sparse.py's banded LP (n = 8192) as a BlockedEllOp on the
+    # pdhg host loop with bench.py's ell8192 parameters (at most 2,000
+    # iterations, eps_acc 1e-12, a check every 100). That LP has no box
+    # rows: it is unbounded, and the solve certifies so after a few
+    # checks, as the JAX package's does
+    c21, a21, b21 = make_banded_box_lp(n21)
+    ell21 = tt.BlockedEllOp.from_dense(a21, block=(128, 128), device=dev)
+    c21t = torch.from_numpy(c21).to(dev)
+    b21t = torch.from_numpy(b21).to(dev)
+    cone21 = tt.ConeLayout([tt.rpos(3 * n21)])
+    p21 = tt.SolverParam(max_iter=400_000, eps_acc=1e-3, profile="fast")
+    spread21 = scaling_spread(ell21)
+    p21r = tconic._resolve_fast_profile(
+        tconic._maybe_auto_equil(p21, ell21, None), ell21, cone21)
+    check((p21r.method, p21r.accel, p21r.equil_iters)
+          == ("direct", "halpern", None), f"fast profile on ELL: {p21r}")
+    cb, ab, bb = make_banded_lp(n21b, k_tiles=2)
+    ell21b = tt.BlockedEllOp.from_dense(ab, block=(128, 128), device=dev)
+    del ab
+    cbt, bbt = torch.from_numpy(cb).to(dev), torch.from_numpy(bb).to(dev)
+    cone21b = tt.ConeLayout([tt.rpos(n21b)])
+    p21b = tt.SolverParam(max_iter=pdhg_iters, eps_acc=1e-12,
+                          check_period=100)
+    runs21 = drive({
+        "box LP ELL, fast profile":
+            lambda: tt.solve(c21t, ell21, b21t, cone21, p21),
+        "banded LP ELL, pdhg host loop":
+            lambda: tt.solve_jit(cbt, ell21b, bbt, cone21b, p21b),
+        "banded LP ELL, pdhg host loop, repeat":
+            lambda: tt.solve_jit(cbt, ell21b, bbt, cone21b, p21b),
+    }, kernels)
+    cnt21 = count(runs21)
+    r21, wall21, _, _ = runs21["box LP ELL, fast profile"]
+    check(r21.converged, f"banded box LP status {r21.status}")
+    obj21 = objective(c21, r21)
+    t0 = time.perf_counter()
+    hi21 = linprog(c21.astype(np.float64),
+                   A_ub=sparse.csr_matrix(a21.astype(np.float64)),
+                   b_ub=b21.astype(np.float64), bounds=(None, None),
+                   method="highs-ipm")
+    highs21_s = time.perf_counter() - t0
+    check(hi21.status == 0, f"HiGHS status {hi21.status}: {hi21.message}")
+    check(rel(obj21, hi21.fun) <= 5e-3, f"banded box LP objective {obj21} "
+          f"vs HiGHS {hi21.fun}")
+    r21b, wall21b, _, _ = runs21["banded LP ELL, pdhg host loop"]
+    r21c, wall21c, _, _ = runs21["banded LP ELL, pdhg host loop, repeat"]
+    diff21 = bitwise_diff(r21c, r21b)
+    check(r21b.status in (tt.SolverStatus.EXCESS_ITER,
+                          tt.SolverStatus.UNBOUNDED)
+          and r21c.iters == r21b.iters and diff21 == [],
+          f"pdhg on ELL: status {r21b.status}, {r21b.iters}/{r21c.iters} "
+          f"iterations, repeat differs in {diff21}")
+    check(all(v == 0 for v in cnt21.values()),
+          f"the structured path launched kernels: {cnt21}")
+    wall_b, busy_b, nl_b, top_b = profile_loop(
+        lambda: tt.solve_jit(cbt, ell21b, bbt, cone21b,
+                             rep(p21b, max_iter=200)), 200)
+    print(f"phase 21 banded box LP n={n21} (A {3 * n21}x{n21} f32 as "
+          f"BlockedEllOp, K={ell21.cols.shape[1]}), profile='fast' "
+          f"(column spread {spread21:.2f}) -> method={p21r.method!r} "
+          f"accel={p21r.accel!r} check_period={p21r.check_period} "
+          f"equil_iters={p21r.equil_iters}: CONVERGED in {r21.iters} "
+          f"iterations, {1e3 * wall21:.1f} ms; objective {obj21:.6f} vs "
+          f"HiGHS {hi21.fun:.6f} (rel {rel(obj21, hi21.fun):.2e}, HiGHS "
+          f"{highs21_s:.1f} s); banded LP n={n21b} (K="
+          f"{ell21b.cols.shape[1]}) on the pdhg host loop: "
+          f"{tt.SolverStatus(r21b.status).name} after {r21b.iters} "
+          f"iterations, {wall21b:.3f} s ({r21b.iters / wall21b:.1f} "
+          f"iterations/s; repeat {r21c.iters / wall21c:.1f}), repeat "
+          f"bitwise; profile of 200 iterations: {wall_b:.1f} us wall, "
+          f"{100 * busy_b / wall_b:.1f}% busy, {nl_b:.1f} launches per "
+          f"iteration (setup included); launches {cnt21}", flush=True)
+
+    # ---- phase 22: the other operators on the card against their dense
+    # twins; the matrix-free stencil LP (n = 65,536) as a CustomOp on the
+    # indirect engine with the hand-written and the autograd adjoint; the
+    # n = 4096 banded box LP as a SparseOp against phase 21's ELL solve
+    rng = np.random.default_rng(22)
+    band21 = np.ascontiguousarray(a21[:n21])
+    ell_band = tt.BlockedEllOp.from_dense(band21, block=(128, 128),
+                                          device=dev)
+    dd = (rng.random(n21) + 0.5).astype(np.float32)
+    ones21 = torch.ones(n21, dtype=f32, device=dev)
+    dd_t = torch.from_numpy(dd).to(dev)
+    sparse21 = tt.SparseOp.from_dense(torch.from_numpy(a21).to(dev))
+    zeros21 = np.zeros((n21, n21), np.float32)
+    ops22 = {
+        "SparseOp": (sparse21, a21),
+        "BlockedEllOp": (ell21, a21),
+        "VStackOp": (tt.VStackOp((ell_band, tt.DiagOp(ones21),
+                                  tt.DiagOp(-ones21))), a21),
+        "HStackOp": (tt.HStackOp((ell_band, tt.DiagOp(dd_t))),
+                     np.hstack([band21, np.diag(dd)])),
+        "BlockOp": (tt.BlockOp([[ell_band, tt.ZeroOp(n21, n21, device=dev)],
+                                [tt.DiagOp(ones21), tt.DiagOp(dd_t)]]),
+                    np.block([[band21, zeros21],
+                              [np.eye(n21, dtype=np.float32), np.diag(dd)]])),
+        "ScaledOp": (tt.ScaledOp(-2.5, ell_band),
+                     (np.float32(-2.5) * band21)),
+        "DiagOp": (tt.DiagOp(dd_t), np.diag(dd)),
+    }
+    errs22 = {}
+    for what, (op, dense) in ops22.items():
+        errs = operator_errors(op, dense, rng)
+        worst = max(errs, key=errs.get)
+        check(errs[worst] <= 1e-4, f"{what} against its dense twin: {errs}")
+        errs22[what] = (worst, errs[worst])
+    del ops22, zeros21
+    p22 = tt.SolverParam(max_iter=400_000, eps_acc=1e-3, check_period=20,
+                         method="direct", accel="halpern")
+    stencils = {adj: make_stencil_lp(tt, n22, dev, adjoint=adj)
+                for adj in (True, False)}
+    cone22 = tt.ConeLayout([tt.rpos(3 * n22)])
+    def stencil_solve(adjoint):
+        c_, op_, b_ = stencils[adjoint]
+        return lambda: tt.solve(c_, op_, b_, cone22, p22)
+
+    runs22 = drive({
+        "stencil LP CustomOp, hand adjoint": stencil_solve(True),
+        "stencil LP CustomOp, autograd adjoint": stencil_solve(False),
+        "box LP SparseOp, fast profile":
+            lambda: tt.solve(c21t, sparse21, b21t, cone21, p21),
+        "box LP SparseOp, fast profile, repeat":
+            lambda: tt.solve(c21t, sparse21, b21t, cone21, p21),
+    }, kernels)
+    cnt22 = count(runs22)
+    r_hand, wall_hand, _, _ = runs22["stencil LP CustomOp, hand adjoint"]
+    r_auto, wall_auto, _, _ = runs22["stencil LP CustomOp, autograd adjoint"]
+    o_hand = objective(stencils[True][0].cpu().numpy(), r_hand)
+    o_auto = objective(stencils[False][0].cpu().numpy(), r_auto)
+    check(r_hand.converged and r_auto.converged
+          and rel(o_auto, o_hand) <= 1e-4,
+          f"stencil LP: statuses {r_hand.status}/{r_auto.status}, "
+          f"objectives {o_hand}/{o_auto}")
+    r_sp, wall_sp, _, _ = runs22["box LP SparseOp, fast profile"]
+    r_sp2 = runs22["box LP SparseOp, fast profile, repeat"][0]
+    o_sp = objective(c21, r_sp)
+    check(r_sp.converged and rel(o_sp, obj21) <= 1e-3,
+          f"SparseOp banded box LP: status {r_sp.status}, objective {o_sp} "
+          f"vs ELL {obj21}")
+    sp_diff = bitwise_diff(r_sp2, r_sp)
+    check(all(v == 0 for v in cnt22.values()),
+          f"the structured path launched kernels: {cnt22}")
+    print("phase 22 operators against their dense twins (largest relative "
+          "error, f32): " + ", ".join(
+              f"{k} {v[1]:.1e} ({v[0]})" for k, v in errs22.items())
+          + f"; stencil LP n={n22} (CustomOp, plain CG): hand adjoint "
+          f"{r_hand.iters} iterations, {1e3 * wall_hand:.1f} ms, "
+          f"{r_hand.diag['cg_steps'] / r_hand.iters:.2f} CG steps per "
+          f"iteration; autograd adjoint {r_auto.iters} iterations, "
+          f"{1e3 * wall_auto:.1f} ms; objectives {o_hand:.6f} / "
+          f"{o_auto:.6f} (rel {rel(o_auto, o_hand):.1e}); SparseOp banded "
+          f"box LP n={n21}: {r_sp.iters} iterations, {1e3 * wall_sp:.1f} ms,"
+          f" objective {o_sp:.6f} vs ELL {obj21:.6f} (rel "
+          f"{rel(o_sp, obj21):.1e}); repeat "
+          + ("bitwise" if not sp_diff and r_sp2.iters == r_sp.iters
+             else f"not bitwise ({r_sp2.iters} iterations, differs in "
+                  f"{sp_diff})")
+          + f"; launches {cnt22}", flush=True)
+    return counts
 
 
 def main():
@@ -1825,6 +2353,10 @@ def main():
     for runs in (runs17, runs18, runs19):
         for k in kernels:
             main_counts[k] += sum(r[2][k] for r in runs.values())
+
+    # ---- phases 20-22: the structured operators and the indirect engine
+    for k, v in structured_phases(tt, dev, kernels).items():
+        main_counts[k] += v
 
     primal = cp_main[False]
     record = {"kernels": [

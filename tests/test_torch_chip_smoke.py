@@ -21,6 +21,18 @@ from totsu_tpu_torch.ops.kernels import cone_proj as cp
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "examples"))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for this module: its problems are small, and
+    the suite runs several workers on one machine, where torch's thread
+    pools would oversubscribe the cores (measured: the module ran ten
+    times slower beside five busy workers)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _spec(layout):
     return [(f.kind, f.dim, f.count, f.alpha) for f in layout.factors]
 
@@ -505,3 +517,196 @@ def test_spd_cache_counted_once_in_a_chunked_direct_solve():
     chunks = sum(1 for n, _, _ in spans if n == "_run_halpern_dr")
     assert r.converged and chunks == -(-r.iters // 40) > 1
     assert sum(1 for n, _, _ in spans if n == "spd_cache") == 1
+
+
+# ---- phases 20-22: the structured operators and the indirect engine
+
+
+def _benchmarks():
+    path = os.path.join(cs.ROOT, "benchmarks")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+
+
+def test_make_banded_box_lp_is_the_benchmark_s():
+    # phases 21-22's n = 4096 box LP comes from benchmark_indirect.py's
+    # generator: the same arrays at n = 512
+    _benchmarks()
+    import benchmark_indirect
+    for got, want in zip(cs.make_banded_box_lp(512),
+                         benchmark_indirect.make_banded_box_lp(512)):
+        assert got.dtype == want.dtype == np.float32
+        np.testing.assert_array_equal(got, want)
+
+
+def test_make_banded_lp_is_the_benchmark_s():
+    _benchmarks()
+    import benchmark_sparse
+    for got, want in zip(cs.make_banded_lp(512, k_tiles=2),
+                         benchmark_sparse.make_banded_lp(512, k_tiles=2)):
+        assert got.dtype == want.dtype == np.float32
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("adjoint", [True, False], ids=["hand", "autograd"])
+def test_stencil_op_is_the_benchmark_s(adjoint):
+    # phase 22's matrix-free stencil LP: the torch copy of the JAX
+    # benchmark's operator and LP, in f32, to f32 roundoff (1e-6); the
+    # adjoint written by hand or left to autograd
+    _benchmarks()
+    import jax.numpy as jnp
+    import benchmark_indirect as bi
+    import totsu_tpu_torch as tt
+    n = 64
+    ours = cs.make_stencil_op(tt, n, "cpu", adjoint=adjoint)
+    theirs = bi.make_stencil_op(n)
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=n).astype(np.float32)
+    y = rng.normal(size=3 * n).astype(np.float32)
+    for got, want in (
+            (ours.matvec(torch.from_numpy(x)), theirs.matvec(jnp.asarray(x))),
+            (ours.rmatvec(torch.from_numpy(y)),
+             theirs.rmatvec(jnp.asarray(y))),
+            (ours.col_abssum(), theirs.col_abssum()),
+            (ours.row_abssum(), theirs.row_abssum())):
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+    c, _, b = cs.make_stencil_lp(tt, n, "cpu", adjoint=adjoint)
+    cj, _, bj = bi.make_stencil_lp(n)
+    np.testing.assert_allclose(c.numpy(), np.asarray(cj), atol=0)
+    np.testing.assert_allclose(b.numpy(), np.asarray(bj), atol=1e-6)
+
+
+def test_tiles_lp_is_jax_from_tiles():
+    # phase 20's generator at n = 512 (bench.py's n = 65,536 LP cut to 4
+    # tile rows): the port's BlockedEllOp from its tiles holds the JAX
+    # package's arrays, and the host's sparse copy of [band; I; -I] is its
+    # dense form
+    import totsu_tpu as jt
+    import totsu_tpu_torch as tt
+    tiles, b, c = cs.make_tiles_lp(512)
+    assert sorted(tiles) == [(0, 0), (0, 1), (1, 0), (1, 1), (1, 2), (2, 1),
+                             (2, 2), (2, 3), (3, 2), (3, 3)]
+    assert b.shape == (1536,) and c.shape == (512,)
+    assert b.dtype == c.dtype == np.float32
+    ours = tt.BlockedEllOp.from_tiles(tiles, m=512, n=512, block=(128, 128),
+                                      device="cpu")
+    theirs = jt.BlockedEllOp.from_tiles(tiles, m=512, n=512,
+                                        block=(128, 128))
+    np.testing.assert_array_equal(ours.blocks.permute(0, 2, 1, 3).numpy(),
+                                  np.asarray(theirs.blocks))
+    np.testing.assert_array_equal(ours.blocks_t.permute(0, 2, 1, 3).numpy(),
+                                  np.asarray(theirs.blocks_t))
+    np.testing.assert_array_equal(ours.cols.numpy(), np.asarray(theirs.cols))
+    np.testing.assert_array_equal(ours.cols_t.numpy(),
+                                  np.asarray(theirs.cols_t))
+    band = np.asarray(theirs.to_dense())
+    want = np.concatenate([band, np.eye(512), -np.eye(512)])
+    np.testing.assert_array_equal(cs.tiles_box_csr(tiles, 512, 128).toarray(),
+                                  want)
+
+
+def test_sparse_lp_kkt_passes_a_solution_and_fails_a_perturbed_one():
+    # phase 20's residuals from the sparse host copy, never dense: the
+    # numbers of the dense formula, within 2e-3 for a solve at eps_acc 1e-3
+    # on the CPU, past it for a perturbed x or y
+    import totsu_tpu_torch as tt
+    tiles, b, c = cs.make_tiles_lp(256)
+    a_sp = cs.tiles_box_csr(tiles, 256, 128)
+    ell = tt.BlockedEllOp.from_tiles(tiles, m=256, n=256, block=(128, 128),
+                                     device="cpu")
+    ones = torch.ones(256)
+    a_op = tt.VStackOp((ell, tt.DiagOp(ones), tt.DiagOp(-ones)))
+    r = tt.solve(torch.from_numpy(c), a_op, torch.from_numpy(b),
+                 tt.ConeLayout([tt.rpos(768)]),
+                 tt.SolverParam(max_iter=8000, eps_acc=1e-3, check_period=20,
+                                method="direct", accel="halpern"))
+    x, y = r.x.numpy(), r.y.numpy()
+    kkt = cs.lp_kkt(c, a_sp, b, x, y)
+    assert max(kkt) <= 2e-3
+    np.testing.assert_allclose(kkt, cs.lp_kkt(c, a_sp.toarray(), b, x, y),
+                               rtol=1e-9)
+    assert cs.lp_kkt(c, a_sp, b, x + 0.1, y)[0] > 2e-3
+    assert cs.lp_kkt(c, a_sp, b, x, y * 1.1)[1] > 2e-3
+
+
+def test_structured_phases_run_on_the_cpu_at_a_small_size(monkeypatch,
+                                                          capsys):
+    # phases 20-22's flow (every solve, gate and line) at n = 256 on the
+    # CPU, with the card's timers stubbed: it launches none of the three
+    # kernels
+    import totsu_tpu_torch as tt
+    from totsu_tpu_torch.ops.kernels import dual_matvec as dm
+    from totsu_tpu_torch.ops.kernels import megakernel as mk
+
+    def timed(fn, **kw):
+        fn()
+        return 1e-3
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **kw: None)
+    monkeypatch.setattr(cs, "device_ms", timed)
+    monkeypatch.setattr(cs, "stream_ms", timed)
+    monkeypatch.setattr(cs, "kernel_rows",
+                        lambda fn, **kw: (fn(), [("gemv", 30.0)])[1])
+    monkeypatch.setattr(cs, "profile_loop",
+                        lambda fn, iters: (fn(), (1.0, 0.5, 9.0, []))[1])
+    kernels = {"dual_matvec": dm, "megakernel": mk, "cone_proj": cp}
+    counts = cs.structured_phases(tt, torch.device("cpu"), kernels, n20=256,
+                                  n21=256, n21b=256, n22=256,
+                                  pdhg_iters=200)
+    assert counts == {k: 0 for k in kernels}
+    out = capsys.readouterr().out
+    for phase in (20, 21, 22):
+        assert f"\nphase {phase} " in out
+    assert "bitwise the whole solve" in out
+
+
+def test_operator_errors_catches_a_wrong_operator():
+    import totsu_tpu_torch as tt
+    rng = np.random.default_rng(1)
+    a = rng.normal(size=(6, 4)).astype(np.float32)
+    good = tt.DenseOp(torch.from_numpy(a))
+    errs = cs.operator_errors(good, a, rng)
+    assert set(errs) == {"to_dense", "matvec", "rmatvec", "col_abssum",
+                         "row_abssum", "row_absmax", "col_absmax",
+                         "col_sqsum", "diag_scale"}
+    assert max(errs.values()) <= 1e-6
+
+    class Off(tt.DenseOp):
+        def rmatvec(self, y):
+            return super().rmatvec(y) * 1.001
+
+    bad = cs.operator_errors(Off(torch.from_numpy(a)), a, rng)
+    assert bad["rmatvec"] > 1e-4 and bad["matvec"] <= 1e-6
+
+
+def test_kernel_rows_survive_lost_records(monkeypatch):
+    # phase 20's rows of the ELL product: each kernel at its mean per
+    # record times its records per call, so a window that lost records
+    # reads as a whole one; CPU rows do not count
+    cuda, cpu = torch.autograd.DeviceType.CUDA, torch.autograd.DeviceType.CPU
+
+    class Row:
+        def __init__(self, key, kind, count, us):
+            self.key, self.device_type, self.count = key, kind, count
+            self.self_device_time_total = us
+
+    class Prof:
+        def __init__(self, activities):
+            self.rows = [Row("gather", cuda, 20, 50.0),
+                         Row("gemv", cuda, 3, 108.0),    # 17 records lost
+                         Row("launch", cpu, 20, 900.0)]
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return self.rows
+
+    monkeypatch.setattr(torch.profiler, "profile", Prof)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    assert cs.kernel_rows(lambda: None, calls=20) == [
+        ("gemv", pytest.approx(36.0)), ("gather", pytest.approx(2.5))]

@@ -242,16 +242,34 @@ def test_precision_pin_full_f32_and_restored(caller_precision, monkeypatch):
 
 
 def test_direct_unported_raise():
+    # the indirect engine is ported: method='direct' on an operator that is
+    # not a DenseOp runs CG instead of raising; what still raises is an
+    # operator without the LinOp contract (no matvec), from the base class
     c, a, b, lay = _lp()
     ct, at, bt = interop.problem_from_numpy(c, a, b, device="cpu")
     cone = interop.cone_from_reference(lay)
 
     class Op(tt.LinOp):
         shape = at.shape
+        device = at.device
 
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError):
         direct.solve_direct_jit(ct, Op(), bt, cone,
                                 tt.SolverParam(method="direct"))
+
+    class MatOp(Op):
+        def matvec(self, x):
+            return at @ x
+
+        def rmatvec(self, y):
+            return y @ at
+
+    p = tt.SolverParam(method="direct", max_iter=100_000)
+    res = direct.solve_direct_jit(ct, MatOp(), bt, cone, p)
+    ref = direct.solve_direct_jit(ct, tt.DenseOp(at), bt, cone, p)
+    assert res.status == ref.status == tt.SolverStatus.CONVERGED
+    np.testing.assert_allclose(float(ct @ res.x), float(ct @ ref.x),
+                               rtol=1e-4)
 
 
 # ---- twins of tests/test_direct.py (dense cases), on the port

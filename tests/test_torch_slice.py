@@ -125,6 +125,7 @@ def test_port_never_imports_jax():
             "totsu_tpu_torch.ops.kernels.megakernel, "
             "totsu_tpu_torch.ops.kernels.cone_proj, "
             "totsu_tpu_torch.solver.direct, "
+            "totsu_tpu_torch.solver.scaling, "
             "totsu_tpu_torch.solver.api, totsu_tpu_torch.utils.env, "
             "totsu_tpu_torch.problems.gp; "
             "print(sorted(m for m in sys.modules if m in ('jax', "
@@ -151,8 +152,14 @@ def _no_cuda(monkeypatch):
                      tt.ConeLayout([tt.rpos(2)])),
     lambda: tt.solve_jit(np.ones(2), -np.eye(2), -np.ones(2),
                          tt.ConeLayout([tt.rpos(2)])),
+    lambda: tt.DiagOp([1.0, 2.0]),
+    lambda: tt.ZeroOp(2, 2),
+    lambda: tt.SparseOp.from_dense(np.eye(2)),
+    lambda: tt.BlockedEllOp.from_dense(np.eye(2), block=(1, 1)),
+    lambda: tt.CustomOp(params=None, m=2, n=2, matvec_fn=lambda p, x: x),
 ], ids=["problem_from_numpy", "lp", "qp", "gp", "ProbLP", "ProbQP",
-        "solve", "solve_jit"])
+        "solve", "solve_jit", "DiagOp", "ZeroOp", "SparseOp",
+        "BlockedEllOp", "CustomOp"])
 def test_numpy_input_targets_cuda(build, monkeypatch):
     # data that is not a tensor goes to the card unless device= says
     # otherwise: without a card that raises, it never runs on the CPU

@@ -7,7 +7,8 @@ homogeneous self-dual embedding of a conic LP
     subject to  A x + s = b,   s in K
 
 iterated with the diagonally preconditioned Pock-Chambolle method on a
-dense ``A``, over products of zero / nonnegative / second-order /
+dense or structured ``A`` (stacks, diagonal, sparse, blocked-ELL,
+matrix-free), over products of zero / nonnegative / second-order /
 rotated-second-order / exponential / power cones, with the LP, QP and GP
 reductions. Plain tensor code is PyTorch; the kernels of the path are CUDA
 C++ for ``sm_90a`` (``csrc/``):
@@ -22,15 +23,15 @@ passes ``device=``; without a card that raises. On a CPU tensor each
 kernel wrapper runs its plain PyTorch version instead.
 
 Besides pdhg (plain, Halpern and restarted averaging), ``method='direct'``
-runs the dense direct engine (Douglas-Rachford on the embedding with a
-cached solve of I + A^T A, plain or Halpern), and ``profile='fast'``
-routes a problem as the JAX package does. Every engine checkpoints
+runs the direct engine (Douglas-Rachford on the embedding, plain or
+Halpern: a cached solve of I + A^T A for a dense A, warm-started Jacobi
+CG for any other operator), and ``profile='fast'`` routes a problem as
+the JAX package does. Every engine checkpoints
 (``return_state``, a :class:`ResumeState`) and resumes exactly
 (``resume_state``); ``solve(chunk_iters=N)`` chains such calls, and
 ``log_period`` prints the host loops' progress.
 
-Not ported yet (ROADMAP.md): the indirect engine and structured
-operators, the PSD / custom projections, the QCQP / SOCP / SDP
+Not ported yet (ROADMAP.md): the PSD / custom projections, the QCQP / SOCP / SDP
 reductions, polish, diff, batching and distribution.
 """
 
@@ -41,7 +42,10 @@ from totsu_tpu_torch.solver.conic import (solve, solve_jit, solve_sequence,
 from totsu_tpu_torch.solver.cone import (
     ConeLayout, zero, rpos, soc, rsoc, psd, expc, powc, custom,
 )
-from totsu_tpu_torch.solver.operator import LinOp, DenseOp, as_linop
+from totsu_tpu_torch.solver.operator import (
+    LinOp, DenseOp, DiagOp, SparseOp, BlockedEllOp, ZeroOp, CustomOp, VStackOp,
+    HStackOp, BlockOp, ScaledOp, as_linop,
+)
 from totsu_tpu_torch.problems import (
     ConicProblem, ProbLP, ProbQP, MatBuild,
 )
@@ -52,6 +56,8 @@ __all__ = [
     "SolverParam", "SolverStatus", "SolverError", "Solver",
     "solve", "solve_jit", "solve_sequence", "SolveResult", "ResumeState",
     "ConeLayout", "zero", "rpos", "soc", "rsoc", "psd", "expc", "powc", "custom",
-    "LinOp", "DenseOp", "as_linop",
+    "LinOp", "DenseOp", "DiagOp", "SparseOp", "BlockedEllOp", "ZeroOp", "CustomOp",
+    "VStackOp", "HStackOp",
+    "BlockOp", "ScaledOp", "as_linop",
     "ConicProblem", "ProbLP", "ProbQP", "MatBuild",
 ]

@@ -1,11 +1,11 @@
 """Carry state across from the JAX package (``totsu_tpu``).
 
-The JAX package's ``SolverParam``, ``Factor``, ``ConeLayout`` and
-``ResumeState`` are plain frozen dataclasses, so their fields are read
-here without importing ``jax``: the caller hands the objects in. Problem
-data and a checkpoint's arrays are handed over as numpy arrays, which both
-packages accept; in the port they go to the CUDA card unless the caller
-names another device.
+The JAX package's ``SolverParam``, ``Factor``, ``ConeLayout``,
+``ResumeState`` and operators are plain frozen dataclasses, so their
+fields are read here without importing ``jax``: the caller hands the
+objects in. Problem data, an operator's arrays and a checkpoint's arrays
+are handed over as numpy arrays, which both packages accept; in the port
+they go to the CUDA card unless the caller names another device.
 """
 
 import dataclasses
@@ -15,6 +15,7 @@ import torch
 
 from totsu_tpu_torch.solver.cone import CUSTOM, ConeLayout, Factor
 from totsu_tpu_torch.solver.conic import ResumeState
+from totsu_tpu_torch.solver import operator as op_
 from totsu_tpu_torch.solver.operator import as_dtype, target_device
 from totsu_tpu_torch.solver.params import SolverParam
 
@@ -65,8 +66,9 @@ def resume_state_from_reference(state, *, device=None, dtype=None
     through numpy to ``device`` (default the CUDA card) in ``dtype``
     (default their own). The JAX direct engine's Cholesky factor is upper
     triangular (``cho_factor``), the port's lower: it is transposed. The
-    indirect engine's CG warm start ``ws`` has no meaning here and is
-    dropped."""
+    indirect engine's CG warm start ``ws = (z1, worst_rel2)`` crosses as
+    it is; the dense engine's ``ws`` is a 0-d placeholder the port does
+    not keep."""
     dev = target_device(device)
     tdt = None if dtype is None else as_dtype(dtype)
 
@@ -80,6 +82,8 @@ def resume_state_from_reference(state, *, device=None, dtype=None
     aux = {}
     for key, val in state.aux.items():
         if key == "ws":
+            if isinstance(val, tuple):
+                aux[key] = tree(val)
             continue
         if key in _AUX_INTS:
             aux[key] = int(np.asarray(val))
@@ -92,3 +96,57 @@ def resume_state_from_reference(state, *, device=None, dtype=None
     return ResumeState(u=tree(state.u), v=tree(state.v),
                        k=int(np.asarray(state.k)), aux=aux,
                        engine=state.engine, accel=state.accel)
+
+
+def operator_from_reference(op, *, device=None, dtype=None) -> op_.LinOp:
+    """The port's operator from a JAX one, field by field through numpy
+    (arrays to ``device``, default the CUDA card, floating data in
+    ``dtype``, default its own): ``DenseOp`` (and ``PallasDenseOp``),
+    ``DiagOp``, ``ZeroOp``, the stacks recursively, ``ScaledOp``,
+    ``BlockedEllOp`` (its tiles into the port's layout, the same slots and
+    indices) and ``SparseOp`` (the BCOO coordinate list less its padding;
+    coalesced when the BCOO says its indices are unique). A ``CustomOp``
+    holds JAX functions and cannot cross."""
+    dev = target_device(device)
+    tdt = None if dtype is None else as_dtype(dtype)
+
+    def data(x):
+        return torch.as_tensor(np.array(x), dtype=tdt, device=dev)
+
+    def child(o):
+        return operator_from_reference(o, device=dev, dtype=dtype)
+
+    kind = type(op).__name__
+    if kind in ("DenseOp", "PallasDenseOp"):
+        return op_.DenseOp(data(op.a))
+    if kind == "DiagOp":
+        return op_.DiagOp(data(op.d))
+    if kind == "ZeroOp":
+        return op_.ZeroOp(op.m, op.n, device=dev, dtype=tdt)
+    if kind in ("VStackOp", "HStackOp"):
+        return getattr(op_, kind)(tuple(child(o) for o in op.ops))
+    if kind == "ScaledOp":
+        return op_.ScaledOp(float(np.asarray(op.alpha)), child(op.op))
+    if kind == "BlockedEllOp":
+        ell = op_.BlockedEllOp.from_slots(
+            op.blocks, op.cols, op.blocks_t, op.cols_t, m=op.m, n=op.n,
+            bm=op.bm, bn=op.bn, device=dev)
+        return ell if tdt is None else ell.astype(tdt)
+    if kind == "SparseOp":
+        mat = op.mat
+        shape = tuple(mat.shape)
+        idx = np.asarray(mat.indices).reshape(-1, 2)
+        vals = np.asarray(mat.data).reshape(-1)
+        # BCOO pads with out-of-range coordinates (and zero data)
+        keep = (idx[:, 0] < shape[0]) & (idx[:, 1] < shape[1])
+        coo = torch.sparse_coo_tensor(
+            torch.as_tensor(idx[keep].T.astype(np.int64), device=dev),
+            data(vals[keep]), shape, check_invariants=False)
+        if mat.unique_indices:
+            coo = coo.coalesce()  # unique: coalescing sums nothing
+        return op_.SparseOp(coo)
+    if kind == "CustomOp":
+        raise NotImplementedError(
+            "a CustomOp holds JAX functions; build it in the port with "
+            "torch code (totsu_tpu_torch.CustomOp)")
+    raise ValueError(f"no port of the operator {kind}")

@@ -22,10 +22,13 @@ the loop's only host sync (a logged check, ``log_period > 0``, reads its
 printed numbers too). ``kernel='mega'`` runs the whole loop instead
 in one CUDA kernel launch (``ops/kernels/megakernel.py``).
 ``method='direct'`` hands the solve to the direct engine
-(``solver/direct.py``); ``profile='fast'`` picks engine and knobs first
-(:func:`_resolve_fast_profile`). ``return_state`` hands back a
-:class:`ResumeState` that ``resume_state`` continues exactly, and
-``solve(chunk_iters=N)`` runs a solve as such a chain of N-iteration calls.
+(``solver/direct.py``: a cached solve for a dense A, CG for any other
+operator); ``profile='fast'`` picks engine and knobs first
+(:func:`_resolve_fast_profile`), and :func:`solve` switches on Ruiz for
+badly scaled structured data (:func:`_maybe_auto_equil`).
+``return_state`` hands back a :class:`ResumeState` that
+``resume_state`` continues exactly, and ``solve(chunk_iters=N)`` runs a
+solve as such a chain of N-iteration calls.
 """
 
 import dataclasses
@@ -35,7 +38,8 @@ import numpy as np
 import torch
 
 from totsu_tpu_torch.solver.cone import ConeLayout, RSOC, EXP, POW, PSD
-from totsu_tpu_torch.solver.operator import LinOp, DenseOp, as_linop
+from totsu_tpu_torch.solver.operator import (LinOp, DenseOp, as_linop,
+                                            full_f32_matmul, pin_dtype)
 from totsu_tpu_torch.solver.params import (SolverParam, SolverStatus,
                                            SolverError, effective_eps_inf)
 
@@ -525,8 +529,10 @@ def _check_supported(param: SolverParam, row_sharding):
 
 def _on_card(a_op: LinOp) -> bool:
     """Whether the solve runs on a CUDA device: the fast profile asks this
-    where the JAX package asks whether it runs on a TPU."""
-    return isinstance(a_op, DenseOp) and a_op.a.device.type == "cuda"
+    where the JAX package asks whether it runs on a TPU. Any operator
+    answers by its ``device``; one without a device is not on the card."""
+    device = getattr(a_op, "device", None)
+    return device is not None and device.type == "cuda"
 
 
 def _resolve_fast_profile(param: SolverParam, a_op: LinOp, cone: ConeLayout,
@@ -540,7 +546,7 @@ def _resolve_fast_profile(param: SolverParam, a_op: LinOp, cone: ConeLayout,
     * other dense problems with n <= 8192 go to the direct engine with
       ``accel='halpern'``;
     * structured operators go to the direct engine too (its indirect
-      mode; ROADMAP item 10), PSD layouts excepted;
+      mode), PSD layouts excepted;
     * everything else: pdhg with ``accel='halpern'``, ``normalize`` and,
       for dense A, ``equil_iters=10``.
 
@@ -568,7 +574,7 @@ def _resolve_fast_profile(param: SolverParam, a_op: LinOp, cone: ConeLayout,
         from totsu_tpu_torch.ops.kernels import megakernel as mk
         mega_first = (
             updates.get("kernel", param.kernel) in ("auto", "mega")
-            and a_op.a.dtype == torch.float32
+            and a_op.dtype == torch.float32
             and mk.supported(cone) and mk.fits(m, n, cone)
             and _on_card(a_op))
     if row_sharding is not None:
@@ -630,7 +636,15 @@ def solve_jit(
     the CUDA card (a tensor A on another device than ``device`` raises),
     and a ``c`` or ``b`` that is not a tensor follows A. ``profile='fast'``
     is resolved first; ``method='direct'`` then runs the direct engine.
+    Every product runs in full f32 (:func:`full_f32_matmul`).
     """
+    with full_f32_matmul():
+        return _solve_jit(c, a, b, cone, param, warm_start, resume_state,
+                          row_sharding, device)
+
+
+def _solve_jit(c, a, b, cone, param, warm_start, resume_state, row_sharding,
+               device) -> SolveResult:
     a_op = as_linop(a, device)
     if param.profile == "fast":
         param = _resolve_fast_profile(param, a_op, cone, row_sharding)
@@ -645,9 +659,7 @@ def solve_jit(
                 "constraints are a pdhg-engine feature); use "
                 "method='pdhg', or drop the sharding")
     _check_supported(param, row_sharding)
-    if not isinstance(a_op, DenseOp):
-        raise _not_ported("structured operators", "10")
-    device = a_op.a.device
+    device = a_op.device
     c = _as_tensor(c, device)
     b = _as_tensor(b, device)
     if param.method == "direct":
@@ -658,8 +670,9 @@ def solve_jit(
     dtype = torch.promote_types(c.dtype, b.dtype)
     c = c.to(dtype)
     b = b.to(dtype)
-    # pin A to the iterate dtype
-    a_op = DenseOp(a_op.a.to(dtype).contiguous())
+    # pin A to the iterate dtype (any operator: the JAX package pins only
+    # a dense A)
+    a_op = pin_dtype(a_op, dtype)
 
     equil_d = equil_e = None
     if param.equil_iters is not None and param.equil_iters > 0:
@@ -804,7 +817,7 @@ def _checkpoint(param: SolverParam, engine: str, u, v, k: int, aux, status,
 
 
 def _finish(u, iters, status, crits, eps_zero, sb, sc, equil_d,
-            equil_e, state=None) -> SolveResult:
+            equil_e, state=None, diag=None) -> SolveResult:
     """Scale the solution by 1/tau on the tau > eps_zero exit path
     (certificates are returned unscaled), undo normalization and
     equilibration, pack the result."""
@@ -822,7 +835,7 @@ def _finish(u, iters, status, crits, eps_zero, sb, sc, equil_d,
     return SolveResult(
         x=sol_x, y=sol_y, status=int(status), iters=int(iters),
         cri_pri=crits[0], cri_dual=crits[1], cri_gap=crits[2],
-        cri_unbdd=crits[3], cri_infeas=crits[4], state=state)
+        cri_unbdd=crits[3], cri_infeas=crits[4], state=state, diag=diag)
 
 
 def _mega_choice(param: SolverParam, a_op: LinOp, cone: ConeLayout,
@@ -909,22 +922,98 @@ def solve(
     resume exactly, the accel epochs and the direct engine's cached
     solve included, so the chunked solve takes the same iterations to the
     same x; megakernel chunks start a fresh accel epoch (the kernel
-    exports none)."""
+    exports none).
+
+    On a structured operator under ``profile='fast'`` with ``equil_iters``
+    unset, a probe of the data's column spread may switch on Ruiz first
+    (:func:`_maybe_auto_equil`); an indirect-engine solve whose CG hit its
+    cap warns (:func:`_warn_cg_truncation`)."""
     if polish:
         raise _not_ported("polish=True", "13")
+    a_op = as_linop(a, device)
+    param = _maybe_auto_equil(param, a_op, row_sharding)
     if chunk_iters is not None:
-        result = _solve_chunked(c, a, b, cone, param, warm_start,
-                                row_sharding, int(chunk_iters), device)
+        result = _solve_chunked(c, a_op, b, cone, param, warm_start,
+                                row_sharding, int(chunk_iters))
     else:
-        result = solve_jit(c, a, b, cone, param, warm_start=warm_start,
-                           row_sharding=row_sharding, device=device)
+        result = solve_jit(c, a_op, b, cone, param, warm_start=warm_start,
+                           row_sharding=row_sharding)
+    _warn_cg_truncation(result)
     if result.status != SolverStatus.CONVERGED:
         raise SolverError(result.status)
     return result
 
 
-def _solve_chunked(c, a, b, cone, param, warm_start, row_sharding,
-                   chunk_iters: int, device) -> SolveResult:
+#: Auto-equilibration threshold on ``scaling_spread`` (the column 2-norm
+#: spread). The JAX package calibrated it on a TPU: well-scaled instance
+#: classes probe at 1.1-2.9, where Ruiz measurably hurt, the ill-scaled
+#: family at 24-172, where equilibration was the only converging
+#: configuration. Unmeasured on the H100 (ROADMAP item 17).
+_AUTO_EQUIL_SPREAD = 10.0
+
+
+def _maybe_auto_equil(param: SolverParam, a_op, row_sharding):
+    """The host-side, data-driven leg of the fast profile: switch on Ruiz
+    equilibration (``equil_iters=10``) for a badly scaled structured
+    operator. It fires only when every condition holds: ``profile='fast'``,
+    ``equil_iters`` unset (None; an explicit value, 0 included, wins),
+    no ``row_sharding``, an operator that is not dense and has the
+    absmax/diag_scale trio Ruiz needs and the ``col_sqsum`` the probe
+    reads, and a column spread past :data:`_AUTO_EQUIL_SPREAD`. A stack
+    whose child lacks the trio (e.g. ``VStackOp((CustomOp, DiagOp))``)
+    raises inside the probe: the policy stands down. The spread is kept
+    on the operator instance, so a sequence reusing one operator probes
+    once (one device reduction and one host read)."""
+    if (param.profile != "fast" or param.equil_iters is not None
+            or row_sharding is not None):
+        return param
+    if isinstance(a_op, DenseOp) or not isinstance(a_op, LinOp):
+        return param
+    t = type(a_op)
+    if (t.diag_scale is LinOp.diag_scale
+            or t.row_absmax is LinOp.row_absmax
+            or t.col_absmax is LinOp.col_absmax
+            or t.col_sqsum is LinOp.col_sqsum):
+        return param
+    spread = getattr(a_op, "_spread_memo", None)
+    if spread is None:
+        from totsu_tpu_torch.solver.scaling import scaling_spread
+        try:
+            spread = scaling_spread(a_op)
+        except NotImplementedError:
+            # a child of a composite stack lacks the trio: Ruiz could not
+            # run either. NaN compares False below
+            spread = float("nan")
+        object.__setattr__(a_op, "_spread_memo", spread)
+    if spread > _AUTO_EQUIL_SPREAD:
+        return dataclasses.replace(param, equil_iters=10)
+    return param
+
+
+def _warn_cg_truncation(result):
+    """Warn when the indirect engine's CG cap cut resolvent solves far
+    short of their tolerance (worst relative residual past 10x the
+    target): the DR iteration then ran on inexact resolvents."""
+    d = result.diag
+    if d is None or "cg_worst_rel" not in d:
+        return
+    worst = float(d["cg_worst_rel"])
+    tol = float(d["cg_tol"])
+    if worst > 10.0 * tol:
+        import warnings
+        warnings.warn(
+            "indirect engine: CG resolvent solves hit the iteration cap "
+            f"(worst relative residual {worst:.1e} vs target {tol:.1e}) "
+            "— the solve ran on inexact resolvents. For badly scaled "
+            "data set equil_iters=10 (Ruiz; profile='fast' switches it "
+            "on automatically when the data's column-norm spread "
+            "exceeds 10); cg_precond='jacobi' is already the default for "
+            "operators that support col_sqsum.",
+            RuntimeWarning, stacklevel=3)
+
+
+def _solve_chunked(c, a_op, b, cone, param, warm_start, row_sharding,
+                   chunk_iters: int) -> SolveResult:
     """solve(..., chunk_iters=N): the first chunk takes ``warm_start``,
     each later one the previous chunk's checkpoint; a chunk that ends
     RUNNING or EXCESS_ITER at the cap reports EXCESS_ITER. The result's
@@ -935,7 +1024,6 @@ def _solve_chunked(c, a, b, cone, param, warm_start, row_sharding,
     cap = param.bounded_max_iter
     p_chunk = dataclasses.replace(param, max_iter=min(chunk_iters, cap),
                                   return_state=True)
-    a_op = as_linop(a, device)  # A goes to its device once, not per chunk
     res = solve_jit(c, a_op, b, cone, p_chunk, warm_start=warm_start,
                     row_sharding=row_sharding)
     total = res.iters

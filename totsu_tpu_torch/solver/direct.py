@@ -1,10 +1,9 @@
 """Direct (SCS-style) solve of the homogeneous self-dual embedding.
 
-Port of the dense half of ``totsu_tpu.solver.direct``: Douglas-Rachford
-splitting (O'Donoghue et al., SCS) of the same embedding the pdhg engine
-iterates,
+Port of ``totsu_tpu.solver.direct``: Douglas-Rachford splitting
+(O'Donoghue et al., SCS) of the same embedding the pdhg engine iterates,
 
-    u~  <- (I + Q)^{-1} (u + v)            (cached linear solve)
+    u~  <- (I + Q)^{-1} (u + v)            (linear solve)
     u   <- Pi_C(u~ - v)                    (cone projection)
     v   <- v - u~ + u
 
@@ -16,21 +15,24 @@ reduce the (I + Q) solve to the SPD matrix M = I + A^T A:
     M z1 = r1 - A^T r2,   z2 = r2 + A z1,
     (I + Q) solve = M-solve + rank-1 correction with g = M^{-1} (c, b).
 
-M is factored once (:func:`spd_cache`): Cholesky in f64 (cuSOLVER on
-the card); in f32 a Newton-Schulz inverse, after which every solve takes
-two refinement steps, as in the JAX package. Every matrix product runs in
-full f32 (:func:`full_f32_matmul`): a TF32 resolvent breaks the firm
-nonexpansiveness of the DR map.
+On a dense A, M is factored once (:func:`spd_cache`): Cholesky in f64
+(cuSOLVER on the card); in f32 a Newton-Schulz inverse, after which every
+solve takes two refinement steps, as in the JAX package. On any other
+operator (the indirect mode, SCS's "indirect" linear-system mode) each
+M-solve runs warm-started, optionally Jacobi-preconditioned conjugate
+gradient (:func:`_cg`) from the previous resolvent's solution, threaded
+through the DR loop (and a checkpoint) as ``ws``. Every matrix product
+runs in full f32 (:func:`full_f32_matmul`): a TF32 resolvent breaks the
+firm nonexpansiveness of the DR map.
 
 The JAX ``lax.while_loop`` becomes a host loop, as in the pdhg engine:
 ``check_period`` updates, one check (whose ``dual_matvec`` is kernel 1 on
-the card; exp/pow blocks of ``Pi_C`` run kernel B), one host read of the
-status. The indirect mode (CG on structured operators) waits for ROADMAP
-§1 item 10. A checkpoint (``return_state``) carries the cached solve and
-the Sherman-Morrison border, so a resumed solve skips the O(n^3) build.
+a dense A on the card; exp/pow blocks of ``Pi_C`` run kernel B), one host
+read of the status. A checkpoint (``return_state``) carries the cached
+solve, the Sherman-Morrison border and the CG warm start, so a resumed
+solve skips the O(n^3) build and the border's solve.
 """
 
-import contextlib
 import dataclasses
 from typing import Optional
 
@@ -39,9 +41,10 @@ import torch
 from totsu_tpu_torch.solver.cone import ConeLayout
 from totsu_tpu_torch.solver.conic import (
     SolveResult, _artificial_restart, _checkpoint, _finish, _halpern_weights,
-    _is_terminal, _make_check, _not_ported, _np_dtype, _run_plain,
-    _unpack_resume, initial_status)
-from totsu_tpu_torch.solver.operator import DenseOp
+    _is_terminal, _make_check, _np_dtype, _run_plain, _unpack_resume,
+    initial_status)
+from totsu_tpu_torch.solver.operator import (DenseOp, full_f32_matmul,
+                                            pin_dtype)
 from totsu_tpu_torch.solver.params import (SolverParam, SolverStatus,
                                            effective_eps_inf)
 
@@ -50,27 +53,6 @@ def _matmul(x, y):
     """Every matrix product of the engine: A^T A, the Newton-Schulz
     steps and the products of each solve."""
     return torch.matmul(x, y)
-
-
-@contextlib.contextmanager
-def full_f32_matmul():
-    """Full-f32 matrix products (no TF32) inside, whatever the caller set;
-    the caller's setting is put back on the way out, also on a raise.
-    The legacy ``allow_tf32`` flag is restored where the precision cannot
-    be read (a caller that mixed the legacy and the new API)."""
-    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
-    try:
-        precision = torch.get_float32_matmul_precision()
-    except RuntimeError:
-        precision = None
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        if precision is not None:
-            torch.set_float32_matmul_precision(precision)
-        else:
-            torch.backends.cuda.matmul.allow_tf32 = allow_tf32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -199,15 +181,127 @@ def _run_halpern_dr(t_map, pair, check, z0, k: int, status: int, crits,
                                  "z": rz}
 
 
+def _cg(apply_fn, rhs, x0, rel_tol: float, max_cg: int, inv_diag=None):
+    """Warm-started (optionally Jacobi-preconditioned) conjugate gradient
+    on an SPD operator: the step-for-step port of the JAX package's
+    ``lax.while_loop``. ``apply_fn(z) = z + A^T (A z)`` has eigenvalues in
+    [1, 1 + sigma_max(A)^2], so plain CG converges geometrically;
+    ``inv_diag`` (the reciprocal of diag(I + A^T A)) makes it Jacobi PCG,
+    the lever for badly column-scaled data. The stopping test reads the
+    un-preconditioned residual either way, so ``rel_tol`` means the same in
+    both modes.
+
+    Each step ends with one host read of ``rr > tol2``: the loop is bound
+    by its ~20 launches per step, and a read costs one sync, where steps
+    run in groups behind a mask would compute the steps past the exit.
+
+    Returns ``(x, rel2, steps)``: ``rel2`` the relative squared residual at
+    exit (> rel_tol^2 exactly when the ``max_cg`` cap truncated), ``steps``
+    the CG steps taken."""
+    r = rhs - apply_fn(x0)
+    den = torch.clamp(torch.dot(rhs, rhs), min=torch.finfo(rhs.dtype).tiny)
+    tol2 = (rel_tol ** 2) * den
+
+    def prec(res):
+        return res if inv_diag is None else res * inv_diag
+
+    x = x0
+    z = prec(r)
+    p = z
+    rz = torch.dot(r, z)
+    rr = rz if inv_diag is None else torch.dot(r, r)
+    steps = 0
+    while steps < max_cg and bool(rr > tol2):
+        ap = apply_fn(p)
+        alpha = rz / torch.dot(p, ap)
+        x = x + alpha * p
+        r = r - alpha * ap
+        z = prec(r)
+        rz_new = torch.dot(r, z)
+        rr = rz_new if inv_diag is None else torch.dot(r, r)
+        p = z + (rz_new / rz) * p
+        rz = rz_new
+        steps += 1
+    return x, rr / den, steps
+
+
+class IndirectSolve:
+    """The indirect mode's M-solve on any :class:`LinOp`: warm-started CG
+    on I + A^T A. ``ws = (z1, worst_rel2)`` is the last resolvent's
+    solution (the next one's initial guess: near the DR fixed point the
+    right-hand side barely moves) and the worst relative squared residual
+    so far; the host loop calls :meth:`m_solve` in the JAX loop's order,
+    so carrying it here is exact.
+
+    The resolvent tolerance stays well below ``eps_acc`` so the DR map is
+    effectively exact, floored at the dtype's attainable residual:
+    ``cg_tol = max(min(eps_acc 1e-2, 1e-8), 30 eps)``, at most
+    ``max_cg = min(n, 500)`` steps (a fixed cap, as in the JAX package).
+    The one-time border solve g = M^{-1} h runs tighter (it enters every
+    later resolvent): ``max(cg_tol 1e-2, 4 eps)``, ``min(4n, 4000)``
+    steps. ``cg_precond`` 'auto' takes Jacobi where the operator has
+    ``col_sqsum`` and plain CG where it has not; 'jacobi' raises there."""
+
+    def __init__(self, a_op, n: int, dtype, device, param: SolverParam,
+                 ws=None):
+        self.a_op = a_op
+        eps_mach = float(torch.finfo(dtype).eps)
+        self.cg_tol = max(min(param.eps_acc * 1e-2, 1e-8), 30.0 * eps_mach)
+        self.max_cg = min(n, 500)
+        self.setup_tol = max(self.cg_tol * 1e-2, 4.0 * eps_mach)
+        self.setup_max = min(4 * n, 4000)
+        if param.cg_precond not in ("auto", "jacobi", "none"):
+            raise ValueError(
+                f"unknown cg_precond {param.cg_precond!r}; expected "
+                "'auto', 'jacobi' or 'none'")
+        self.inv_diag = None
+        if param.cg_precond in ("auto", "jacobi"):
+            try:
+                self.inv_diag = 1.0 / (1.0 + a_op.col_sqsum().to(dtype))
+            except NotImplementedError:
+                if param.cg_precond == "jacobi":
+                    raise
+        self.ws = ws if ws is not None else (
+            torch.zeros(n, dtype=dtype, device=device),
+            torch.zeros((), dtype=dtype, device=device))
+        self.steps = self.solves = self.setup_steps = 0
+
+    def spd_apply(self, z):
+        return z + self.a_op.rmatvec(self.a_op.matvec(z))
+
+    def m_solve(self, r1, r2):
+        xw, worst = self.ws
+        z1, rel2, steps = _cg(self.spd_apply, r1 - self.a_op.rmatvec(r2), xw,
+                              self.cg_tol, self.max_cg, self.inv_diag)
+        self.ws = (z1, torch.maximum(worst, rel2))
+        self.steps += steps
+        self.solves += 1
+        return z1, r2 + self.a_op.matvec(z1)
+
+    def setup_solve(self, r1, r2):
+        z1, _, self.setup_steps = _cg(
+            self.spd_apply, r1 - self.a_op.rmatvec(r2), torch.zeros_like(r1),
+            self.setup_tol, self.setup_max, self.inv_diag)
+        return z1, r2 + self.a_op.matvec(z1)
+
+    def diag(self) -> dict:
+        """``SolveResult.diag``: the worst relative resolvent residual of
+        the solve against its target (the JAX package's pair), and the CG
+        steps of this call's resolvents and of the border's solve."""
+        return {"cg_worst_rel": torch.sqrt(self.ws[1]),
+                "cg_tol": torch.tensor(self.cg_tol, dtype=self.ws[1].dtype,
+                                       device=self.ws[1].device),
+                "cg_steps": self.steps, "cg_solves": self.solves,
+                "cg_setup_steps": self.setup_steps}
+
+
 def solve_direct_jit(c, a_op, b, cone: ConeLayout,
                      param: SolverParam = SolverParam(), warm_start=None,
                      resume_state=None) -> SolveResult:
     """The direct-engine solve of ``solve_jit(method='direct')``: ``c``
-    (n,) and ``b`` (m,) tensors on the device of the dense operator
-    ``a_op``. Never raises on non-convergence; returns a status."""
-    if not isinstance(a_op, DenseOp):
-        raise _not_ported("the indirect engine (method='direct' on a "
-                          "structured operator)", "10")
+    (n,) and ``b`` (m,) tensors on the device of the operator ``a_op``
+    (the cached solve for a dense A, the indirect mode for any other).
+    Never raises on non-convergence; returns a status."""
     with full_f32_matmul():
         return _solve_direct(c, a_op, b, cone, param, warm_start,
                              resume_state)
@@ -215,11 +309,11 @@ def solve_direct_jit(c, a_op, b, cone: ConeLayout,
 
 def _solve_direct(c, a_op, b, cone, param, warm_start, resume_state):
     dtype = torch.promote_types(c.dtype, b.dtype)
-    device = a_op.a.device
+    device = a_op.device
+    dense = isinstance(a_op, DenseOp)
     c = c.to(dtype)
     b = b.to(dtype)
-    # pin A to the iterate dtype
-    a_op = DenseOp(a_op.a.to(dtype).contiguous())
+    a_op = pin_dtype(a_op, dtype)
     n = c.shape[0]
     m = b.shape[0]
     if cone.dim != m:
@@ -232,7 +326,6 @@ def _solve_direct(c, a_op, b, cone, param, warm_start, resume_state):
         from totsu_tpu_torch.solver.scaling import ruiz_equilibrate_op
         a_op, b, c, equil_d, equil_e = ruiz_equilibrate_op(
             a_op, b, c, cone, iters=param.equil_iters)
-    amat = a_op.a
 
     eps_zero = param.eps_zero
     eps_inf = effective_eps_inf(param, dtype)
@@ -299,25 +392,36 @@ def _solve_direct(c, a_op, b, cone, param, warm_start, resume_state):
         v0[n:n + m] = cone.project(b_it - a_op.matvec(u0[:n]), dual=False)
 
     aux_c = resume_aux if resume_aux is not None else {}
-    cache = SpdSolve.from_aux(aux_c, dtype) or spd_cache(amat)
+    if dense:
+        amat = a_op.a
+        cache = SpdSolve.from_aux(aux_c, dtype) or spd_cache(amat)
+        indirect = None
 
-    def spd_solve(rhs):
-        z = cache.apply_inv(rhs)
-        for _ in range(cache.refine_steps):
-            resid = rhs - z - _matmul(amat.T, _matmul(amat, z))
-            z = z + cache.apply_inv(resid)
-        return z
+        def spd_solve(rhs):
+            z = cache.apply_inv(rhs)
+            for _ in range(cache.refine_steps):
+                resid = rhs - z - _matmul(amat.T, _matmul(amat, z))
+                z = z + cache.apply_inv(resid)
+            return z
 
-    def m_solve(r1, r2):
-        z1 = spd_solve(r1 - _matmul(amat.T, r2))
-        return z1, r2 + _matmul(amat, z1)
+        def m_solve(r1, r2):
+            z1 = spd_solve(r1 - _matmul(amat.T, r2))
+            return z1, r2 + _matmul(amat, z1)
+
+        setup_solve = m_solve
+        aux = cache.aux()
+    else:
+        indirect = IndirectSolve(a_op, n, dtype, device, param,
+                                 ws=aux_c.get("ws"))
+        m_solve, setup_solve = indirect.m_solve, indirect.setup_solve
+        aux = {}
 
     # the Sherman-Morrison border g = M^{-1} h
     h = torch.cat([c_it, b_it])
     if "gh" in aux_c:
         gh, denom = aux_c["gh"], aux_c["denom"]
     else:
-        gh = torch.cat(m_solve(c_it, b_it))
+        gh = torch.cat(setup_solve(c_it, b_it))
         denom = 1.0 + torch.dot(h, gh)
 
     def iq_solve(w):
@@ -364,7 +468,7 @@ def _solve_direct(c, a_op, b, cone, param, warm_start, resume_state):
     status, crits = initial_status(
         check, u0, v0, k_start, resume_aux,
         warm_start is not None or resume_state is not None, dtype, device)
-    aux = {**cache.aux(), "gh": gh, "denom": denom}
+    aux.update(gh=gh, denom=denom)
     if param.accel == "halpern":
         hal_keys = {"anchor", "ke", "fp_rst", "fp_last", "z"}
         hal_resume = resume_aux if resume_aux is not None \
@@ -391,7 +495,10 @@ def _solve_direct(c, a_op, b, cone, param, warm_start, resume_state):
         u, v, k, status, crits, _ = _run_plain(
             update, check, u0, v0, k_start, status, crits, cap,
             check_period)
+    if indirect is not None:
+        aux["ws"] = indirect.ws
     return _finish((u[:n], u[n:n + m], None, u[-1]), k - k_start, status,
                    crits, eps_zero, sb, sc, equil_d, equil_e,
                    state=_checkpoint(param, "direct", u, v, k, aux, status,
-                                     crits))
+                                     crits),
+                   diag=None if indirect is None else indirect.diag())

@@ -3,8 +3,8 @@
 Port of ``totsu_tpu.solver.params``: the same fields with the same
 defaults and meaning, so a parameter set carries across field by field
 (``totsu_tpu_torch.interop.param_from_reference``). ``cg_precond``
-belongs to the indirect engine (ROADMAP item 10) and has no effect on the
-dense engines.
+belongs to the indirect engine (``method='direct'`` on a structured
+operator) and has no effect on the dense engines.
 """
 
 import dataclasses
@@ -39,8 +39,8 @@ class SolverParam:
     #: Ruiz-equilibration sweeps (``None`` = unset/off, ``0`` = explicitly off).
     equil_iters: Optional[int] = None
     #: Iteration engine: 'pdhg' (the reference's Pock-Chambolle method) or
-    #: 'direct' (Douglas-Rachford on the embedding with a cached solve of
-    #: I + A^T A; dense A only, the indirect mode is not yet ported).
+    #: 'direct' (Douglas-Rachford on the embedding: a cached solve of
+    #: I + A^T A for a dense A, warm-started CG for any other operator).
     method: str = "pdhg"
     #: Acceleration: '' (reference iterate path), 'halpern' (restarted
     #: reflected Halpern; pdhg and direct) or 'restart' (PDLP-style
@@ -63,7 +63,9 @@ class SolverParam:
     #: the rest pdhg with Halpern, normalize and Ruiz. The crossovers are
     #: TPU measurements, unmeasured on the H100.
     profile: str = "reference"
-    #: Indirect-engine CG preconditioner (not yet ported; no effect here).
+    #: Indirect-engine CG preconditioner: 'auto' (Jacobi, diag(I + A^T A),
+    #: where the operator has col_sqsum, else plain CG), 'jacobi' (raises
+    #: without col_sqsum) or 'none'.
     cg_precond: str = "auto"
     #: Iteration-loop backend: '' = host loop, 'mega' = the whole-solve
     #: CUDA kernel (its plain version on CPU tensors), 'auto' = the kernel
