@@ -13,7 +13,14 @@ SLSQP; then the direct engine (the golden LP through method='direct'
 in f64; the n=1000 and n=4000 LPs, the logistic regression, the GP and
 the growth portfolio under profile='fast'), the fast profile's
 megakernel branch against the direct engine, and accel='restart' on the
-host loop. Each phase prints one line of its own
+host loop; resume, chunking and logging (phases 17-19); the structured
+operators and the indirect engine (phases 20-22); kernel J, the Jacobi
+PSD projection, against its plain version (phase 23), and the SDP, SOCP
+and QCQP builders and the custom cone (phases 24-26: the partitioning
+SDP dense and structured with each PSD method, the nearest-correlation
+batch, the trajectory QCQP, the torus SOCP), whose f64 references run on
+the CPU in a child process (``--cpu-references``, used by the script
+itself). Each phase prints one line of its own
 numbers; any failed check raises, so the script exits non-zero and prints
 no final line. It needs a CUDA device and the repository beside it; it imports
 nothing of JAX.
@@ -22,6 +29,7 @@ The last two lines of standard output are the kernels' JSON record and
 the JSON status line ``{"ok": true, "device": {...}}``.
 """
 
+import atexit
 import contextlib
 import dataclasses
 import io
@@ -460,6 +468,236 @@ def growth_reference(returns, h_budget):
                  method="SLSQP", bounds=[(0.0, 1.0)] * n, constraints=cons,
                  options={"maxiter": 500, "ftol": 1e-12})
     return float(np.exp(-r.fun))
+
+
+def pack_index(k):
+    """Row and column of each packed entry, column-major upper triangle
+    (``ops/sympack.py`` ``_pack_index``)."""
+    cc, rr = np.triu_indices(k)[::-1]
+    order = np.lexsort((rr, cc))
+    return rr[order], cc[order]
+
+
+def packed_matrix(x, k):
+    """The symmetric matrix of a plainly packed vector (the partitioning
+    example's ``_unpack``)."""
+    rr, cc = pack_index(k)
+    m = np.zeros((k, k))
+    m[rr, cc] = x
+    m[cc, rr] = x
+    return m
+
+
+def grid_weights(x_num, y_num, rng):
+    """A grid graph's N(0, 1) edge weights W (examples/partitioning_sdp.py
+    build, :21-32; benchmarks/benchmark_sdp.py build_partitioning,
+    :76-84)."""
+    l = x_num * y_num
+    w = np.zeros((l, l))
+    for i in range(l):
+        x, y = divmod(i, y_num)
+        if x < x_num - 1:
+            w[i, i + y_num] = w[i + y_num, i] = rng.standard_normal()
+        if y < y_num - 1:
+            w[i, i + 1] = w[i + 1, i] = rng.standard_normal()
+    return w
+
+
+def make_partitioning(x_num=8, y_num=6, seed=10_000):
+    """The reference's partitioning SDP as ``problems.sdp`` data
+    (examples/partitioning_sdp.py build :21-32 and solve_sdp :35-65): min
+    <W, X> over the packed X, F_kk = -E_ij for each packed slot (X >= 0),
+    diag(X) = 1. Returns (w, c, f_mats, a, b)."""
+    w = grid_weights(x_num, y_num, np.random.default_rng(seed))
+    l = w.shape[0]
+    sn = l * (l + 1) // 2
+    rr, cc = pack_index(l)
+    c = w[rr, cc]
+    f_mats = np.zeros((sn + 1, l, l))
+    f_mats[np.arange(sn), rr, cc] = -1.0
+    f_mats[np.arange(sn), cc, rr] = -1.0
+    a = np.zeros((l, sn))
+    a[np.arange(l), np.nonzero(rr == cc)[0]] = 1.0
+    return w, c, f_mats, a, np.ones(l)
+
+
+def make_partitioning_structured(l, seed=10_000):
+    """benchmarks/benchmark_sdp.py build_partitioning (:66-96) in numpy:
+    c the raw packed W, A' = [diag(-dscale); the selection of diag(X)]
+    (dscale 1 on diagonal slots, sqrt2 off), b' = [0; 1], all f32.
+    Returns (w, c, neg_dscale, sel, b)."""
+    rng = np.random.default_rng(seed)
+    y_num = int(np.sqrt(l))
+    while l % y_num:
+        y_num -= 1
+    w = grid_weights(l // y_num, y_num, rng)
+    sn = l * (l + 1) // 2
+    rr, cc = pack_index(l)
+    dscale = np.where(rr == cc, 1.0, np.sqrt(2.0)).astype(np.float32)
+    sel = np.zeros((l, sn), np.float32)
+    sel[np.arange(l), np.nonzero(rr == cc)[0]] = 1.0
+    b = np.concatenate([np.zeros(sn, np.float32), np.ones(l, np.float32)])
+    return w, w[rr, cc].astype(np.float32), -dscale, sel, b
+
+
+def make_noisy_covs(batch, k, seed=5):
+    """examples/nearestcorr_batch_sdp.py make_noisy_covs (:39-50): noisy
+    correlation estimates, possibly indefinite."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(batch):
+        f = rng.normal(size=(k, 3)) / np.sqrt(3)
+        s = f @ f.T + 0.3 * np.diag(rng.random(k))
+        d = 1.0 / np.sqrt(np.diag(s))
+        corr = d[:, None] * s * d[None, :]
+        e = rng.normal(size=(k, k)) * 0.15
+        out.append(corr + (e + e.T) / 2)
+    return np.stack(out)
+
+
+def nearestcorr_data(k):
+    """examples/nearestcorr_batch_sdp.py build (:53-84) without its
+    layout: over u = (packed scaled X, t), min t subject to (t, x -
+    vec(S)) in SOC, x in vec(PSD_k), diag(X) = 1. Returns (a, c, sn); the
+    layout is SOC(1 + sn), PSD(k), zero(k)."""
+    sn = k * (k + 1) // 2
+    a = np.zeros((1 + 2 * sn + k, sn + 1))
+    a[0, sn] = -1.0
+    a[1:1 + sn, :sn] = -np.eye(sn)
+    a[1 + sn:1 + 2 * sn, :sn] = -np.eye(sn)
+    diag_pos = np.array([j * (j + 1) // 2 + j for j in range(k)])
+    a[1 + 2 * sn + np.arange(k), diag_pos] = 1.0
+    c = np.zeros(sn + 1)
+    c[sn] = 1.0
+    return a, c, sn
+
+
+def nearestcorr_b(s_mat):
+    """b of one instance (the example's solve_one, :101-105): [0; -vec(S)
+    scaled; 0; 1]."""
+    k = s_mat.shape[0]
+    rr, cc = pack_index(k)
+    vec_s = s_mat[rr, cc] * np.where(rr == cc, 1.0, np.sqrt(2.0))
+    return np.concatenate([[0.0], -vec_s, np.zeros(len(rr)), np.ones(k)])
+
+
+def make_trajplan(t_cap=30, a_cap=90.0):
+    """examples/trajplan_qcqp.py build (:22-83): P0..Pm, q, r, A, b of the
+    2-D trajectory QCQP (minimum squared velocity, |acceleration| <=
+    a_cap, pinned ends and two waypoints)."""
+    n = 2 * t_cap
+    dt = 1.0 / t_cap
+    d1 = np.zeros((n, n))
+    for i in range(t_cap - 1):
+        for off in (0, t_cap):
+            d1[off + i, off + i] = -1.0 / dt
+            d1[off + i, off + i + 1] = 1.0 / dt
+    p_mats, q_vecs, r_scls = [d1.T @ d1], [np.zeros(n)], [0.0]
+    dtdt = dt * dt
+    for i in range(t_cap - 2):
+        d2 = np.zeros((n, n))
+        for off in (0, t_cap):
+            d2[off + i, off + i] = 1.0 / dtdt
+            d2[off + i, off + i + 1] = -2.0 / dtdt
+            d2[off + i, off + i + 2] = 1.0 / dtdt
+        p_mats.append(d2.T @ d2)
+        q_vecs.append(np.zeros(n))
+        r_scls.append(-0.5 * a_cap * a_cap)
+    x_s, x_m1, x_m2, x_t = (0.0, 0.0), (0.5, -1.5), (0.25, 1.5), (1.0, 1.0)
+    a = np.zeros((12, n))
+    b = np.zeros(12)
+    a[0, 0], b[0] = 1.0, x_s[0]
+    a[1, t_cap], b[1] = 1.0, x_s[1]
+    a[2, 0], a[2, 1] = -1.0, 1.0
+    a[3, t_cap], a[3, t_cap + 1] = -1.0, 1.0
+    a[4, t_cap - 1], b[4] = 1.0, x_t[0]
+    a[5, 2 * t_cap - 1], b[5] = 1.0, x_t[1]
+    a[6, t_cap - 2], a[6, t_cap - 1] = -1.0, 1.0
+    a[7, 2 * t_cap - 2], a[7, 2 * t_cap - 1] = -1.0, 1.0
+    t_m1, t_m2 = t_cap // 3, 2 * t_cap // 3
+    a[8, t_m1], b[8] = 1.0, x_m1[0]
+    a[9, t_cap + t_m1], b[9] = 1.0, x_m1[1]
+    a[10, t_m2], b[10] = 1.0, x_m2[0]
+    a[11, t_cap + t_m2], b[11] = 1.0, x_m2[1]
+    return np.stack(p_mats), np.stack(q_vecs), np.array(r_scls), a, b
+
+
+def make_torus(x_num=9, y_num=7, vol_ratio=0.2):
+    """examples/toruscompl_socp.py build (:19-127): the truss compliance
+    SOCP on a torus grid. Returns (f, g_list, h_list, c_list, d_list, a,
+    b, l, vlen)."""
+    coords = [(x, y) for x in range(x_num) for y in range(y_num)]
+    nodeidx = {c: i for i, c in enumerate(coords)}
+    members = []
+    for hx in range(x_num):
+        for hy in range(y_num):
+            if hx % 2 == 1 and hy % 2 == 0:
+                dxdy = [(1, 0), (0, 1), (1, 1), (-1, 1), (1, -1), (-1, -1)]
+            else:
+                dxdy = [(1, 0), (0, 1)]
+            for dx, dy in dxdy:
+                t = (hx + dx, hy + dy)
+                if t in nodeidx:
+                    members.append((nodeidx[(hx, hy)], nodeidx[t]))
+    fixed = {nodeidx[(0, y)] for y in range(y_num)}
+    loads = {nodeidx[(x_num - 1, y_num // 2)]: (0.0, -1.0)}
+    dof_idx, dof = {}, 0
+    for i in range(len(coords)):
+        if i in fixed:
+            dof_idx[i] = None
+        else:
+            dof_idx[i] = dof
+            dof += 2
+    l = len(members)
+    n = 3 * l
+    vlen = np.array([np.hypot(coords[h][0] - coords[t][0],
+                              coords[h][1] - coords[t][1])
+                     for h, t in members])
+    f = np.zeros(n)
+    f[2 * l:] = 1.0
+    g_list, h_list, c_list, d_list = [], [], [], []
+    for i in range(l):
+        gi = np.zeros((2, n))
+        gi[0, i] = -1.0
+        gi[0, 2 * l + i] = 1.0
+        gi[1, l + i] = np.sqrt(2.0 * vlen[i])
+        ci = np.zeros(n)
+        ci[i] = ci[2 * l + i] = 1.0
+        g_list.append(gi)
+        h_list.append(np.zeros(2))
+        c_list.append(ci)
+        d_list.append(0.0)
+    for sign, d in ((1.0, 0.0), (-1.0, 1.0)):  # 0 <= x_i, x_i <= 1
+        for i in range(l):
+            ci = np.zeros(n)
+            ci[i] = sign
+            g_list.append(np.zeros((0, n)))
+            h_list.append(np.zeros(0))
+            c_list.append(ci)
+            d_list.append(d)
+    ci = np.zeros(n)
+    ci[:l] = -vlen
+    g_list.append(np.zeros((0, n)))
+    h_list.append(np.zeros(0))
+    c_list.append(ci)
+    d_list.append(float(vlen.sum() * vol_ratio))
+    a = np.zeros((dof, n))
+    b = np.zeros(dof)
+    for i, (hidx, tidx) in enumerate(members):
+        beta = np.array([coords[tidx][0] - coords[hidx][0],
+                         coords[tidx][1] - coords[hidx][1]], dtype=float)
+        beta /= np.linalg.norm(beta)
+        if dof_idx[hidx] is not None:
+            a[dof_idx[hidx], l + i] += -beta[0]
+            a[dof_idx[hidx] + 1, l + i] += -beta[1]
+        if dof_idx[tidx] is not None:
+            a[dof_idx[tidx], l + i] += beta[0]
+            a[dof_idx[tidx] + 1, l + i] += beta[1]
+    for node, (px, py) in loads.items():
+        if dof_idx[node] is not None:
+            b[dof_idx[node]] = px
+            b[dof_idx[node] + 1] = py
+    return f, g_list, h_list, c_list, d_list, a, b, l, vlen
 
 
 def cone(tt, spec):
@@ -1218,7 +1456,511 @@ def structured_phases(tt, dev, kernels, n20=65_536, n21=4096, n21b=8192,
     return counts
 
 
+# ---- phases 23-26: the PSD and custom cones, the SDP, SOCP and QCQP
+# builders
+
+#: the CPU references' sizes: phase 4's LP, phases 24-26's partitioning
+#: SDP grid (k = 48), torus SOCP and trajectory QCQP
+REF_KW = dict(lp_n=1000, grid24=(8, 6), torus=(9, 7), traj=(30, 90.0))
+
+#: phase 23's (k, count): the nearest-correlation solves' launch (one
+#: instance a solve; the kernels record's row), the lockstep batch of 16,
+#: the auto rule's regime (k <= 16, count >= 64), the reference's
+#: partitioning order and benchmark_sdp.py's larger ones (phase 25
+#: launches (128, 1))
+PHASE23_SHAPES = ((8, 1), (8, 16), (8, 512), (16, 64), (48, 1), (128, 1),
+                  (128, 16), (256, 1))
+
+
+def cpu_references(lp_n, grid24, torus, traj, cores=None):
+    """The CPU references of phases 4 and 24-26, in f64 (this runs in a
+    child process beside the card's phases, on the CPU only, pinned to
+    ``cores`` where given; the cores it ran on come back as ``cores``):
+    * HiGHS on phase 4's n = ``lp_n`` benchmark LP: status, message,
+      objective, x and its seconds;
+    * the partitioning SDP's objective <W, X> from the port's f64 solve
+      at eps_acc 1e-6 (the structured form of phase 25, the same problem
+      as phase 24's dense one: [diag(-dscale); selection] is the dense
+      A's own matrix), pdhg with Halpern, check_period 20;
+    * the torus SOCP's objective from the port's f64 solve at eps_acc
+      1e-6 (profile='fast');
+    * the trajectory QCQP's objective from SLSQP (the port's f64 solve
+      takes more than 170,000 iterations there)."""
+    if cores:
+        os.sched_setaffinity(0, cores)
+    import totsu_tpu_torch as tt
+    from scipy.optimize import linprog, minimize
+    torch.set_num_threads(2)
+    cpu, f64 = torch.device("cpu"), torch.float64
+    c1, a1, b1 = make_lp(lp_n)
+    t0 = time.perf_counter()
+    hi = linprog(c1.astype(np.float64), A_ub=a1.astype(np.float64),
+                 b_ub=b1.astype(np.float64), bounds=(None, None),
+                 method="highs")
+    lp = {"status": hi.status, "message": hi.message, "fun": hi.fun,
+          "x": None if hi.x is None else hi.x.tolist(),
+          "seconds": time.perf_counter() - t0}
+    x_num, y_num = grid24
+    w, c, neg_d, sel, b = make_partitioning_structured(x_num * y_num)
+    l = w.shape[0]
+    op = tt.VStackOp((tt.DiagOp(torch.tensor(neg_d, dtype=f64)),
+                      tt.DenseOp(torch.tensor(sel, dtype=f64))))
+    r = tt.solve_jit(torch.tensor(c, dtype=f64), op,
+                     torch.tensor(b, dtype=f64),
+                     tt.ConeLayout([tt.psd(l, method="eigh"), tt.zero(l)]),
+                     tt.SolverParam(max_iter=200_000, eps_acc=1e-6,
+                                    accel="halpern", check_period=20))
+    out = {"lp": lp, "partitioning": float(np.trace(w @ packed_matrix(
+        r.x.numpy(), l))), "partitioning_iters": r.iters,
+        "partitioning_status": r.status,
+        "cores": sorted(os.sched_getaffinity(0))}
+    f, g_l, h_l, c_l, d_l, a, b, l_t, _ = make_torus(*torus)
+    rt = tt.problems.socp(f, g_l, h_l, c_l, d_l, a, b, device=cpu).solve_jit(
+        tt.SolverParam(max_iter=200_000, eps_acc=1e-6, profile="fast"))
+    out.update(torus=float(rt.x[2 * l_t:].sum()), torus_iters=rt.iters,
+               torus_status=rt.status)
+    p_mats, _, r_scls, a, b = make_trajplan(*traj)
+    cons = [{"type": "eq", "fun": lambda x: a @ x - b, "jac": lambda x: a}]
+    cons += [{"type": "ineq",
+              "fun": lambda x, i=i: -(0.5 * x @ p_mats[i] @ x + r_scls[i]),
+              "jac": lambda x, i=i: -(p_mats[i] @ x)}
+             for i in range(1, len(p_mats))]
+    res = minimize(lambda x: 0.5 * x @ p_mats[0] @ x,
+                   np.linalg.lstsq(a, b, rcond=None)[0],
+                   jac=lambda x: p_mats[0] @ x, constraints=cons,
+                   method="SLSQP", options=dict(maxiter=1000, ftol=1e-12))
+    viol = max(0.5 * res.x @ p_mats[i] @ res.x + r_scls[i]
+               for i in range(1, len(p_mats)))
+    out.update(traj=float(res.fun), traj_viol=float(max(
+        viol, np.abs(a @ res.x - b).max())))
+    return out
+
+
+def start_cpu_references(**kw):
+    """:func:`cpu_references` in a child process that sees no card; its
+    JSON comes back on the child's standard output."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--cpu-references",
+         json.dumps(kw)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=env, cwd=ROOT)
+
+
+def psd_jacobi_bound(pj, k, count, dtype):
+    """Kernel J's bound: the packed blocks read and written once (bytes)
+    against the operations its source does (``psd_jacobi.ops_count``)."""
+    from totsu_tpu_torch.ops import jacobi
+    elem = torch.empty(0, dtype=dtype).element_size()
+    return bound_ms(2 * count * (k * (k + 1) // 2) * elem,
+                    pj.ops_count(k, count, jacobi.sweeps_for(k)), dtype)
+
+
+def psd_jacobi_phase(dev, shapes=PHASE23_SHAPES):
+    """Phase 23: kernel J against its plain version on the card at each
+    (k, count) of ``shapes``, in f32 and f64 (the error relative to
+    ||X||_F, a repeat bitwise), with its time by CUDA events, the plain
+    version's (wall), the library's (torch.linalg.eigh, clamp, rebuild:
+    device and wall, its host sync included), 'ns' and the bound. Returns
+    the rows by (k, count, dtype)."""
+    from totsu_tpu_torch.ops import sympack
+    from totsu_tpu_torch.ops.kernels import psd_jacobi as pj
+    f32, f64 = torch.float32, torch.float64
+    on_card = dev.type == "cuda"
+
+    def us(x):
+        return "n/a" if x is None else f"{1e3 * x:.2f}"
+
+    rng = np.random.default_rng(23)
+    tol23 = {f32: 1e-5, f64: 1e-12}
+    rows23 = {}
+    for k, cnt in shapes:
+        for dt in (f32, f64):
+            v = torch.tensor(rng.normal(size=(cnt, k * (k + 1) // 2)),
+                             dtype=dt, device=dev)
+            scale = float(torch.linalg.vector_norm(v, dim=1).max())
+            out = pj.proj_psd_jacobi_cuda(v)
+            again = pj.proj_psd_jacobi_cuda(v)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plain = pj.proj_psd_jacobi_plain(v)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+            eigh = sympack.proj_psd_packed(v, method="eigh")
+            err = float((out - plain).abs().max())
+            err_eigh = float((out - eigh).abs().max()) / scale
+            check(err <= tol23[dt] * scale and torch.equal(out, again),
+                  f"psd_jacobi k={k} count={cnt} {dt}: max error "
+                  f"{err / scale:.2e} of ||X||_F against the plain "
+                  f"version (limit {tol23[dt]:.0e}); repeat bitwise "
+                  f"{torch.equal(out, again)}")
+            one_ms, _ = sync_time(lambda: pj.proj_psd_jacobi_cuda(v), 1)
+            calls = max(3, min(50, int(0.3 / max(one_ms, 1e-6))))
+
+            def kern():
+                return pj.proj_psd_jacobi_cuda(v)
+
+            def lib():
+                return sympack.proj_psd_packed(v, method="eigh")
+
+            def ns():
+                return sympack.proj_psd_packed(v, method="ns")
+
+            kern_ms = _median(stream_ms(kern, calls), stream_ms(kern, calls))
+            lib_dev = device_ms(lib, calls=min(calls, 10), windows=1)
+            lib_wall = 1e3 * sync_time(lib, 5)[0]
+            # about 110 launches a call: few calls, so that the host
+            # queues them all behind the sleeping kernel
+            ns_ms = stream_ms(ns, 3)
+            bound = psd_jacobi_bound(pj, k, cnt, dt)
+            pl = pj.device_plan(k, cnt, dt, dev) if on_card else \
+                pj.plan(k, cnt, dt, 232_448)
+            rows23[(k, cnt, dt)] = dict(err=err, rel=err / scale,
+                                        ms=kern_ms, plain_ms=plain_ms,
+                                        lib_ms=lib_dev, lib_wall=lib_wall,
+                                        ns_ms=ns_ms, bound=bound)
+            print(f"  psd_jacobi k={k} count={cnt} {str(dt)[6:]}: "
+                  f"{pl.describe()}; max error {err / scale:.2e} of "
+                  f"||X||_F vs plain ({err_eigh:.2e} vs eigh); us kernel "
+                  f"(events) {us(kern_ms)}, plain (wall) {us(plain_ms)}, "
+                  f"eigh+clamp+rebuild device {us(lib_dev)} / wall "
+                  f"{us(lib_wall)}, ns (events) {us(ns_ms)}; bound "
+                  f"{us(bound[0])} ({bound[1]})", flush=True)
+    worst = {dt: max(r["rel"] for (_, _, d), r in rows23.items() if d == dt)
+             for dt in (f32, f64)}
+    print(f"phase 23 psd_jacobi vs plain: ok at {len(shapes)} shapes "
+          f"(k, count) {list(shapes)} in f32 and f64; worst error "
+          f"{worst[f32]:.2e} (f32) and {worst[f64]:.2e} (f64) of ||X||_F",
+          flush=True)
+    return rows23
+
+
+def sdp_phases(tt, dev, kernels, refs, shapes23=PHASE23_SHAPES,
+               grid24=(8, 6), ks25=(48, 128, 256), iters25=(500, 200),
+               prof_iters25=20, cov=(16, 8), traj=(30, 90.0),
+               torus=(9, 7)):
+    """Phases 23-26: kernel J against its plain version at phase 23's
+    shapes, then the SDP, SOCP and QCQP paths (the sizes are arguments
+    only so that the flow can be rehearsed small). ``refs()`` returns the
+    CPU references (:func:`cpu_references`). Each path is driven once
+    through solve() / solve_jit(), the launch counts set to 0 just before
+    it. Returns the kernels' launch counts over these paths and kernel
+    J's entry of the kernels' record."""
+    f32, f64 = torch.float32, torch.float64
+    rep = dataclasses.replace
+    counts = {k: 0 for k in kernels}
+
+    def count(runs):
+        for r in runs.values():
+            for k in kernels:
+                counts[k] += r[2][k]
+        return {k: sum(r[2][k] for r in runs.values()) for k in kernels}
+
+    def rel(got, want):
+        return abs(got - want) / max(1.0, abs(want))
+
+    rows23 = psd_jacobi_phase(dev, shapes23)
+
+    # ---- phase 24: the reference's partitioning SDP (dense, through
+    # problems.sdp: A 1224 x 1176 f32 at k = 48) under the reference
+    # profile (pdhg host loop, dual_matvec) and profile='fast' (the
+    # direct engine); CONVERGED, diag(X) = 1, X PSD, the objective against
+    # the CPU's f64 solve
+    w24, c24, f_24, a24, b24 = make_partitioning(*grid24)
+    l24 = w24.shape[0]
+    prob24 = tt.problems.sdp(*(torch.tensor(x, dtype=f32, device=dev)
+                               for x in (c24, f_24, a24, b24)))
+    p24 = tt.SolverParam(max_iter=200_000, eps_acc=1e-3)
+    # diag(X) = 1: under the reference profile as far as CONVERGED
+    # certifies it (the primal residual ||A x + s - b|| <= eps_acc (1 +
+    # ||b||), b's norm sqrt(l)); the fast profile to 1e-3
+    name24 = "partitioning SDP k=%d dense, " % l24
+    diag_tol24 = {
+        name24 + "reference profile":
+            p24.eps_acc * (1.0 + float(np.linalg.norm(b24))),
+        name24 + "profile='fast'": 1e-3}
+    runs24 = drive({
+        name24 + "reference profile": lambda: prob24.solve_jit(p24),
+        name24 + "profile='fast'":
+            lambda: prob24.solve_jit(rep(p24, profile="fast")),
+    }, kernels)
+    count(runs24)
+    ref = refs()
+    check(ref["partitioning_status"] == 1,
+          f"partitioning f64 CPU reference status "
+          f"{ref['partitioning_status']}")
+    line24 = []
+    objs24 = {}
+    for name, (r, wall, cnt, _) in runs24.items():
+        xm = packed_matrix(r.x.double().cpu().numpy(), l24)
+        obj = float(np.trace(w24 @ xm))
+        diag_err = float(np.abs(np.diag(xm) - 1.0).max())
+        lam = float(np.linalg.eigvalsh(xm).min())
+        fro = float(np.linalg.norm(xm))
+        check(r.converged and diag_err <= diag_tol24[name]
+              and lam >= -1e-3 * fro
+              and rel(obj, ref["partitioning"]) <= 5e-3,
+              f"{name}: status {r.status}, |diag(X) - 1| {diag_err:.2e} "
+              f"(limit {diag_tol24[name]:.2e}), lambda_min {lam:.2e} "
+              f"(||X||_F {fro:.2f}), objective {obj:.5f} vs the f64 reference "
+              f"{ref['partitioning']:.5f}")
+        objs24[name] = obj
+        line24.append(f"{name.split(', ')[1]}: CONVERGED in {r.iters} "
+                      f"iterations, {wall:.3f} s, objective {obj:.5f}, "
+                      f"|diag(X) - 1| {diag_err:.1e} (limit "
+                      f"{diag_tol24[name]:.1e}), lambda_min "
+                      f"{lam:.1e}, launches {cnt}")
+    print(f"phase 24 partitioning SDP k={l24} (examples/partitioning_sdp.py"
+          f", A {prob24.shape[0]}x{prob24.shape[1]} f32, "
+          f"{4 * prob24.shape[0] * prob24.shape[1] / 1e6:.1f} MB; psd "
+          "'auto': eigh under the reference profile, ns under 'fast'): "
+          + "; ".join(line24) + f"; the CPU's f64 solve "
+          f"{ref['partitioning']:.5f} ({ref['partitioning_iters']} "
+          "iterations at eps_acc 1e-6)", flush=True)
+
+    # ---- phase 25: benchmark_sdp.py's structured partitioning SDP
+    # (A = [diag(-dscale); the diagonal's selection] as a VStackOp):
+    # converged_k48 per method (fast profile: pdhg with Halpern), then
+    # time_e2e's fixed-iteration rates, then launches per iteration and
+    # the busy share under the profiler at the largest k
+    methods = ("eigh", "ns", "jacobi")
+    structured = {}
+
+    def structured_problem(l):
+        if l not in structured:
+            w, c, neg_d, sel, b = make_partitioning_structured(l)
+            op = tt.VStackOp((tt.DiagOp(torch.tensor(neg_d, device=dev)),
+                              tt.DenseOp(torch.tensor(sel, device=dev))))
+            structured[l] = (w, torch.tensor(c, device=dev), op,
+                             torch.tensor(b, device=dev))
+        return structured[l]
+
+    def solve25(l, method, param):
+        _, c, op, b = structured_problem(l)
+        return tt.solve_jit(c, op, b, tt.ConeLayout(
+            [tt.psd(l, method=method), tt.zero(l)]), param)
+
+    k48 = ks25[0]
+    p25 = tt.SolverParam(max_iter=200_000, eps_acc=1e-3, profile="fast")
+    runs25 = drive({f"structured k={k48} {m}, profile='fast'":
+                    (lambda m=m: solve25(k48, m, p25)) for m in methods},
+                   kernels)
+    objs25 = {}
+    for m in methods:
+        r, wall, cnt, _ = runs25[f"structured k={k48} {m}, profile='fast'"]
+        check(r.converged, f"structured k={k48} {m}: status {r.status}")
+        w = structured_problem(k48)[0]
+        objs25[m] = (r.iters, wall, float(np.trace(
+            w @ packed_matrix(r.x.double().cpu().numpy(), k48))))
+    spread25 = max(o for _, _, o in objs25.values()) - min(
+        o for _, _, o in objs25.values())
+    check(spread25 <= 5e-3 * max(1.0, abs(objs25["eigh"][2])),
+          f"structured k={k48}: the methods' objectives {objs25} differ by "
+          f"{spread25:.2e}")
+    e2e = {}
+    for l, iters in zip(ks25[1:], iters25):
+        p_e2e = tt.SolverParam(max_iter=iters, eps_acc=1e-12,
+                               check_period=max(iters // 10, 1))
+        runs = drive({f"structured k={l} {m}, {iters} iterations":
+                      (lambda l=l, m=m: solve25(l, m, p_e2e))
+                      for m in methods}, kernels)
+        for m in methods:
+            r, wall, _, _ = runs[f"structured k={l} {m}, {iters} iterations"]
+            check(r.iters == iters, f"structured k={l} {m}: {r.iters} "
+                  f"iterations, not {iters}")
+            e2e[(l, m)] = iters / wall
+        count(runs)
+    prof25 = {}
+    l_big = ks25[-1]
+    p_prof = tt.SolverParam(max_iter=prof_iters25, eps_acc=1e-12,
+                            check_period=max(prof_iters25 // 2, 1))
+    for m in methods:  # each method ran at this k just before
+        prof25[m] = profile_loop(lambda m=m: solve25(l_big, m, p_prof),
+                                 prof_iters25)
+    cnt25 = count(runs25)
+    print(f"phase 25 structured partitioning SDP (benchmark_sdp.py, A = "
+          f"VStackOp(DiagOp, DenseOp) f32; at k={l_big}: sn "
+          f"{l_big * (l_big + 1) // 2}, m {l_big * (l_big + 1) // 2 + l_big}"
+          f", a {l_big}x{l_big * (l_big + 1) // 2} selection "
+          f"{4 * l_big * l_big * (l_big + 1) // 2 / 1e6:.1f} MB): "
+          f"converged k={k48} (profile='fast', eps_acc 1e-3): "
+          + ", ".join(f"{m} {it} iterations {wall:.3f} s objective "
+                      f"{o:.5f}" for m, (it, wall, o) in objs25.items())
+          + f" (spread {spread25:.1e}; the f64 reference "
+          f"{ref['partitioning']:.5f}); fixed-iteration rates (solve_jit, "
+          "set-up included): "
+          + ", ".join(f"k={l} {m} {rate:.1f} it/s"
+                      for (l, m), rate in e2e.items())
+          + f"; k={l_big} under the profiler ({prof_iters25} iterations): "
+          + ", ".join(f"{m} {wall_us:.0f} us/it, busy "
+                      f"{100 * busy / wall_us:.1f}%, {nl:.1f} launches/it"
+                      for m, (wall_us, busy, nl, _) in prof25.items())
+          + f"; launches {cnt25}", flush=True)
+
+    # ---- phase 26: the other builders and the custom cone
+    n_cov, k26 = cov
+    covs = make_noisy_covs(n_cov, k26)
+    a26, c26, sn26 = nearestcorr_data(k26)
+    a26t = torch.tensor(a26, dtype=f32, device=dev)
+    c26t = torch.tensor(c26, dtype=f32, device=dev)
+    p26 = tt.SolverParam(max_iter=400_000, eps_acc=1e-4, check_period=25)
+
+    def nearestcorr(method, which):
+        lay = tt.ConeLayout([tt.soc(1 + sn26), tt.psd(k26, method=method),
+                             tt.zero(k26)])
+        return [tt.solve_jit(c26t, a26t, torch.tensor(
+            nearestcorr_b(covs[i]), dtype=f32, device=dev), lay, p26)
+            for i in which]
+
+    kept = {}
+
+    def keep(name, fn):
+        def run():
+            kept[name] = fn()
+            return kept[name][-1]
+        return run
+
+    p_traj, q_traj, r_traj, a_traj, b_traj = make_trajplan(*traj)
+    qprob = tt.problems.qcqp(*(torch.tensor(x, dtype=f32, device=dev)
+                               for x in (p_traj, q_traj, r_traj, a_traj,
+                                         b_traj)))
+    f_t, g_t, h_t, c_t, d_t, a_t, b_t, l_t, vlen = make_torus(*torus)
+    sprob = tt.problems.socp(
+        *(torch.tensor(x, dtype=f32, device=dev) for x in (f_t,)),
+        [torch.tensor(x, dtype=f32, device=dev) for x in g_t],
+        [torch.tensor(x, dtype=f32, device=dev) for x in h_t],
+        [torch.tensor(x, dtype=f32, device=dev) for x in c_t], d_t,
+        torch.tensor(a_t, dtype=f32, device=dev),
+        torch.tensor(b_t, dtype=f32, device=dev))
+    p_ex = tt.SolverParam(max_iter=200_000, eps_acc=1e-3)
+    golden = [torch.tensor(x, dtype=f64, device=dev) for x in (
+        [-1.0, 0.0], [[4.0, -1.0], [-1.0, 4.0], [-1.0, -1.0]],
+        [6.0, 6.0, 1.0])]
+    p_gold = tt.SolverParam(max_iter=10_000)
+    runs26 = drive({
+        f"nearest correlation {n_cov} x k={k26}, jacobi":
+            keep("jacobi", lambda: nearestcorr("jacobi", range(n_cov))),
+        f"nearest correlation instance 0, k={k26}, eigh":
+            keep("eigh", lambda: nearestcorr("eigh", [0])),
+        # the example's own parameters on the megakernel: its plain pdhg
+        # takes some 170,000 iterations (a host loop checking every one
+        # would take minutes); normalize and Ruiz, which profile='fast'
+        # adds, let the relative criteria stop far from the example's
+        # limits on this badly scaled instance
+        "trajectory QCQP, megakernel":
+            lambda: qprob.solve_jit(rep(p_ex, kernel="mega")),
+        "torus SOCP": lambda: sprob.solve_jit(p_ex),
+        "custom-cone golden LP f64": lambda: tt.solve_jit(
+            *golden, tt.ConeLayout([tt.custom(3, lambda b: torch.clamp(
+                b, min=0.0), grouped=False)]), p_gold),
+        "R+ golden LP f64": lambda: tt.solve_jit(
+            *golden, tt.ConeLayout([tt.rpos(3)]), p_gold),
+    }, kernels)
+    cnt26 = count(runs26)
+    tol26 = 50 * p26.eps_acc  # the example's own limits
+    worst26 = [0.0, 0.0, 0.0]
+    for i, r in enumerate(kept["jacobi"]):
+        x = r.x.double().cpu().numpy()
+        xm = packed_matrix(x[:sn26], k26)
+        xm[np.triu_indices(k26, 1)] /= np.sqrt(2.0)  # scaled-vec
+        xm[np.tril_indices(k26, -1)] /= np.sqrt(2.0)
+        diag_err = float(np.abs(np.diag(xm) - 1.0).max())
+        eig_min = float(np.linalg.eigvalsh(xm).min())
+        t_err = abs(x[sn26] - float(np.linalg.norm(xm - covs[i])))
+        worst26 = [max(a, b) for a, b in zip(worst26,
+                                             (diag_err, -eig_min, t_err))]
+        check(r.converged and diag_err < tol26 and eig_min > -tol26
+              and t_err < 10 * tol26,
+              f"nearest correlation {i}: status {r.status}, |diag - 1| "
+              f"{diag_err:.1e}, lambda_min {eig_min:.1e}, |t - ||X - S||| "
+              f"{t_err:.1e} (limit {tol26:.0e})")
+    r_eigh = kept["eigh"][0]
+    dx = float((kept["jacobi"][0].x - r_eigh.x).abs().max())
+    check(r_eigh.converged and dx <= 1e-3,
+          f"nearest correlation 0: eigh status {r_eigh.status}, x differs "
+          f"from jacobi's by {dx:.2e}")
+    iters26 = [r.iters for r in kept["jacobi"]]
+
+    check(ref["traj_viol"] <= 1e-3, f"SLSQP's trajectory violates its "
+          f"constraints by {ref['traj_viol']:.1e}")
+    r_q, wall_q, cnt_q, _ = runs26["trajectory QCQP, megakernel"]
+    n_q = a_traj.shape[1]
+    sol = r_q.x.double().cpu().numpy()[:n_q]
+    obj_q = float(0.5 * sol @ p_traj[0] @ sol)
+    viol_q = float(np.abs(a_traj @ sol - b_traj).max())
+    acc_q = float(np.sqrt(max(sol @ p_traj[i] @ sol
+                              for i in range(1, len(p_traj)))))
+    check(r_q.converged and viol_q < 5e-3 and acc_q <= traj[1] * 1.02
+          and rel(obj_q, ref["traj"]) <= 5e-3,
+          f"trajectory QCQP: status {r_q.status}, equality violation "
+          f"{viol_q:.1e}, max |a| {acc_q:.2f} (cap {traj[1]}), objective "
+          f"{obj_q:.4f} vs SLSQP's {ref['traj']:.4f}")
+    r_s, wall_s, cnt_s, _ = runs26["torus SOCP"]
+    sol = r_s.x.double().cpu().numpy()
+    obj_s = float(sol[2 * l_t:3 * l_t].sum())
+    vol = float(vlen @ sol[:l_t])
+    budget = float(vlen.sum() * 0.2)
+    eq_s = float(np.abs(a_t @ sol - b_t).max())
+    check(r_s.converged and sol[:l_t].min() > -5e-3
+          and sol[:l_t].max() < 1.005 and vol <= budget * 1.01
+          and eq_s < 5e-3 and rel(obj_s, ref["torus"]) <= 5e-3,
+          f"torus SOCP: status {r_s.status}, x in [{sol[:l_t].min():.2e}, "
+          f"{sol[:l_t].max():.4f}], volume {vol:.3f} <= {budget:.3f}, "
+          f"equality violation {eq_s:.1e}, objective {obj_s:.4f} vs the "
+          f"f64 reference {ref['torus']:.4f}")
+    r_c = runs26["custom-cone golden LP f64"][0]
+    r_r = runs26["R+ golden LP f64"][0]
+    check(r_c.converged and r_c.iters == r_r.iters
+          and torch.equal(r_c.x, r_r.x),
+          f"custom-cone LP: {r_c.iters} iterations (R+ {r_r.iters}), x "
+          f"bitwise {torch.equal(r_c.x, r_r.x)}")
+
+    def engine(cnt):
+        return "megakernel" if cnt["megakernel"] else "pdhg host loop"
+
+    print(f"phase 26 nearest correlation {n_cov} x k={k26} "
+          f"(examples/nearestcorr_batch_sdp.py, one by one, jacobi): all "
+          f"CONVERGED in {min(iters26)}-{max(iters26)} iterations, "
+          f"{runs26[f'nearest correlation {n_cov} x k={k26}, jacobi'][1]:.3f}"
+          f" s, worst |diag - 1| {worst26[0]:.1e}, lambda_min "
+          f">= {-worst26[1]:.1e}, |t - ||X - S||_F| {worst26[2]:.1e}; "
+          f"instance 0 with eigh {r_eigh.iters} iterations, x within "
+          f"{dx:.1e} of jacobi's; trajectory QCQP (t_cap {traj[0]}, a_cap "
+          f"{traj[1]}, A {qprob.shape[0]}x{qprob.shape[1]}) on the "
+          f"{engine(cnt_q)}: {r_q.iters} iterations, {wall_q:.3f} s, "
+          f"objective {obj_q:.4f} (SLSQP {ref['traj']:.4f}); torus SOCP "
+          f"({torus[0]}x{torus[1]}, A {sprob.shape[0]}x{sprob.shape[1]}) on "
+          f"the {engine(cnt_s)}: {r_s.iters} iterations, {wall_s:.3f} s, "
+          f"objective {obj_s:.4f} (f64 {ref['torus']:.4f}); custom-cone "
+          f"golden LP f64 {r_c.iters} iterations, bitwise its R+ twin; "
+          f"launches {cnt26}", flush=True)
+
+    check(counts["psd_jacobi"] > 0, "phases 24-26 launched psd_jacobi no "
+          "time")
+    # the row of the first shape: the nearest-correlation solves' launch
+    main_row = rows23[(shapes23[0][0], shapes23[0][1], f32)]
+    bound = main_row["bound"]
+    record = {"name": "psd_jacobi", "route": "cuda",
+              "source": "totsu_tpu_torch/csrc/psd_jacobi.cu",
+              "replaces": "totsu_tpu/ops/jacobi.py:102",
+              "launches": counts["psd_jacobi"],
+              "max_abs_err": max(r["err"] for r in rows23.values()),
+              "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
+              "bound_ms": bound[0], "bound_by": bound[1],
+              "library_ms": main_row["lib_ms"],
+              "library_wall_ms": main_row["lib_wall"],
+              "shape": list(shapes23[0])}
+    return counts, record
+
+
+def stop(proc):
+    """Kill a child process that is still running, and reap it."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
     import totsu_tpu_torch as tt
@@ -1227,6 +1969,28 @@ def main():
     from totsu_tpu_torch.ops.kernels import cone_proj as cp
     from totsu_tpu_torch.ops.kernels import dual_matvec as dm
     from totsu_tpu_torch.ops.kernels import megakernel as mk
+    from totsu_tpu_torch.ops.kernels import psd_jacobi as pj
+    # the f64 references of phases 4 and 24-26 (HiGHS, the SDP, SOCP and
+    # QCQP solves), on the CPU in a child process from the start (about
+    # three minutes; it sees no card), stopped on any exit. It runs on two
+    # cores of its own and this process on the others, so that the host
+    # loops timed in phases 2-22 share no core with it
+    cores = sorted(os.sched_getaffinity(0))
+    ref_cores = cores[-2:] if len(cores) >= 6 else None
+    child = start_cpu_references(cores=ref_cores, **REF_KW)
+    atexit.register(stop, child)
+    if ref_cores:
+        os.sched_setaffinity(0, cores[:-2])
+        torch.set_num_threads(min(torch.get_num_threads(), len(cores) - 2))
+    ref_cache = {}
+
+    def refs():
+        if not ref_cache:
+            out, err = child.communicate(timeout=900)
+            check(child.returncode == 0, f"the CPU references failed: "
+                  f"{err}")
+            ref_cache.update(json.loads(out.strip().splitlines()[-1]))
+        return ref_cache
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1237,8 +2001,12 @@ def main():
     print(f"setup: torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}; allow_tf32 matmul="
           f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
-          f"{torch.backends.cudnn.allow_tf32}; card: {smi}", flush=True)
-    kernels = {"dual_matvec": dm, "megakernel": mk, "cone_proj": cp}
+          f"{torch.backends.cudnn.allow_tf32}; card: {smi}; cores: "
+          f"{sorted(os.sched_getaffinity(0))} (torch threads "
+          f"{torch.get_num_threads()}), the CPU references' child "
+          f"{ref_cores or 'shares them'}", flush=True)
+    kernels = {"dual_matvec": dm, "megakernel": mk, "cone_proj": cp,
+               "psd_jacobi": pj}
 
     # ---- phase 1: build every kernel from the sources in the checkout,
     # one nvcc per source, all started together
@@ -1497,8 +2265,9 @@ def main():
         cp.cone_proj_cuda = real_cone_proj
         dm.dual_matvec_cuda = real_dual_matvec
     main_counts = {k: sum(r[2][k] for r in runs.values()) for k in kernels}
-    for name, count in main_counts.items():
-        check(count > 0, f"the main path launched {name} no time")
+    for name in ("dual_matvec", "megakernel", "cone_proj"):
+        check(main_counts[name] > 0, f"the main path launched {name} no "
+              "time")
     r_full, wall_full, cnt_full, _ = runs["LP n=1000, host loop"]
     r_lp_m, wall_lp_m, cnt_lp_m, _ = runs["LP n=100, megakernel"]
     r_qp_m, wall_qp_m, cnt_qp_m, _ = runs["QP n=50, megakernel"]
@@ -1526,19 +2295,17 @@ def main():
         print(f"  megakernel plan, {what} (A {m_}x{n_}): "
               f"{plans[what].describe()}", flush=True)
 
-    # ---- phase 4: full-width LP checks
-    from scipy.optimize import linprog
+    # ---- phase 4: full-width LP checks, against HiGHS (solved in the
+    # child process)
     check(r_full.converged, f"n=1000 LP status {r_full.status}")
     obj = float(np.dot(c1.astype(np.float64),
                        r_full.x.double().cpu().numpy()))
-    t0 = time.perf_counter()
-    hi = linprog(c1.astype(np.float64), A_ub=a1.astype(np.float64),
-                 b_ub=b1.astype(np.float64), bounds=(None, None),
-                 method="highs")
-    highs_s = time.perf_counter() - t0
-    check(hi.status == 0, f"HiGHS status {hi.status}: {hi.message}")
-    rel = abs(obj - hi.fun) / max(1.0, abs(hi.fun))
-    check(rel <= 5e-3, f"n=1000 objective {obj} vs HiGHS {hi.fun} "
+    hi = refs()["lp"]
+    highs_s = hi["seconds"]
+    check(hi["status"] == 0, f"HiGHS status {hi['status']}: "
+          f"{hi['message']}")
+    rel = abs(obj - hi["fun"]) / max(1.0, abs(hi["fun"]))
+    check(rel <= 5e-3, f"n=1000 objective {obj} vs HiGHS {hi['fun']} "
           f"(rel {rel:.3e})")
     dm_full = cnt_full["dual_matvec"]
     check(dm_full >= 2 * r_full.iters,
@@ -1552,7 +2319,7 @@ def main():
           f"{r_full.iters} iterations, {wall_full:.3f} s, "
           f"{r_full.iters / wall_full:.1f} iterations/s, "
           f"{dm_full} dual_matvec launches; objective {obj:.6f} vs HiGHS "
-          f"{hi.fun:.6f} (rel {rel:.2e}, HiGHS {highs_s:.2f} s); repeat "
+          f"{hi['fun']:.6f} (rel {rel:.2e}, HiGHS {highs_s:.2f} s); repeat "
           "solve: same iterations, bitwise-equal x", flush=True)
 
     # ---- phase 4b: the same LP through kernel='mega' (A 16 MB, sliced
@@ -1570,23 +2337,23 @@ def main():
     full_rel_x = float((xm - xl).abs().max() / xl.abs().max().clamp(min=1.0))
     check(full_rel_x <= 1e-2, f"n=1000 LP megakernel: x differs from the "
           f"host loop by {full_rel_x:.3e} relative")
-    xh = torch.from_numpy(np.asarray(hi.x, np.float64))
+    xh = torch.from_numpy(np.asarray(hi["x"], np.float64))
     scale_h = float(xh.abs().max().clamp(min=1.0))
     dist_m = float((xm - xh).abs().max()) / scale_h
     dist_l = float((xl - xh).abs().max()) / scale_h
     check(dist_m <= 1.25 * dist_l, f"n=1000 LP megakernel: x {dist_m:.3e} "
           f"from HiGHS's, the host loop's {dist_l:.3e}")
     obj_m = float(np.dot(c1.astype(np.float64), xm.numpy()))
-    rel_m = abs(obj_m - hi.fun) / max(1.0, abs(hi.fun))
+    rel_m = abs(obj_m - hi["fun"]) / max(1.0, abs(hi["fun"]))
     check(rel_m <= 5e-3, f"n=1000 LP megakernel objective {obj_m} vs HiGHS "
-          f"{hi.fun} (rel {rel_m:.3e})")
+          f"{hi['fun']} (rel {rel_m:.3e})")
     print(f"phase 4b n=1000 LP megakernel ({plans['LP n=1000'].describe()}):"
           f" CONVERGED in {r_full_m.iters} iterations, {wall_full_m:.3f} s "
           f"({1e3 * wall_full_m / r_full_m.iters:.4f} ms per iteration, host "
           f"loop {1e3 * wall_full / r_full.iters:.4f}); x rel diff to the "
           f"host loop {full_rel_x:.2e}; x from HiGHS's {dist_m:.2e} (host "
           f"loop {dist_l:.2e}); objective {obj_m:.6f} vs HiGHS "
-          f"{hi.fun:.6f} (rel {rel_m:.2e}); 1 launch", flush=True)
+          f"{hi['fun']:.6f} (rel {rel_m:.2e}); 1 launch", flush=True)
 
     def rel_x(rm, rx, k):
         xm, xx = rm.x[:k].double().cpu(), rx.x[:k].double().cpu()
@@ -1946,9 +2713,9 @@ def main():
         r12, wall12, cnt12, sp12 = slice_runs["LP n=1000, fast profile"]
         check(r12.converged, f"n=1000 LP fast profile status {r12.status}")
         obj12 = objective(c1, r12)
-        rel12 = rel_obj(obj12, hi.fun)
+        rel12 = rel_obj(obj12, hi["fun"])
         check(rel12 <= 5e-3, f"n=1000 LP fast profile objective {obj12} vs "
-              f"HiGHS {hi.fun} (rel {rel12:.3e})")
+              f"HiGHS {hi['fun']} (rel {rel12:.3e})")
         spans.clear()
         r12b, wall12b = timed(lambda: tt.solve(c1t, a1t, b1t, lp_cone,
                                                p_fast))
@@ -1962,7 +2729,7 @@ def main():
               f"{p12.check_period}: CONVERGED in {r12.iters} iterations; "
               f"{fmt_direct(wall12, sp12)}; repeat {fmt_direct(wall12b, sp12b)}"
               f", same iterations, bitwise-equal x; objective {obj12:.6f} "
-              f"vs HiGHS {hi.fun:.6f} (rel {rel12:.2e}); launches {cnt12}",
+              f"vs HiGHS {hi['fun']:.6f} (rel {rel12:.2e}); launches {cnt12}",
               flush=True)
 
         # ---- phase 13: the n=4000 LP (A 16000x4000 f32, 256 MB) under
@@ -2358,6 +3125,18 @@ def main():
     for k, v in structured_phases(tt, dev, kernels).items():
         main_counts[k] += v
 
+    # ---- phases 23-26: the PSD and custom cones, the SDP, SOCP and QCQP
+    # builders, against the f64 CPU references the child computed
+    t23 = time.perf_counter()
+    counts26, jacobi_record = sdp_phases(
+        tt, dev, kernels, refs, grid24=REF_KW["grid24"],
+        torus=REF_KW["torus"], traj=REF_KW["traj"])
+    for k, v in counts26.items():
+        main_counts[k] += v
+    print(f"all phases passed in {time.perf_counter() - t_start:.1f} s "
+          "(phases 23-26 from "
+          f"{t23 - t_start:.1f} s)", flush=True)
+
     primal = cp_main[False]
     record = {"kernels": [
         {"name": "dual_matvec", "route": "cuda",
@@ -2387,6 +3166,7 @@ def main():
          "ms": primal[1], "plain_ms": primal[2],
          "bound_ms": primal[3][0], "bound_by": primal[3][1],
          "library_ms": None, "device_ms": primal[6]},
+        jacobi_record,
     ]}
     print(smi)
     print(json.dumps(record))
@@ -2396,4 +3176,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--cpu-references"]:
+        print(json.dumps(cpu_references(**json.loads(sys.argv[2]))))
+    else:
+        main()

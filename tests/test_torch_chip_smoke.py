@@ -416,6 +416,16 @@ def test_cp_timing_refuses_without_cuda():
     assert out.returncode != 0 and "no CUDA device" in out.stderr
 
 
+def test_ref_overlap_timing_refuses_without_cuda():
+    script = os.path.join(cs.ROOT, "ref_overlap_timing.py")
+    code = ("import sys, runpy, torch; torch.cuda.is_available = "
+            f"lambda: False; sys.argv = [{script!r}]; "
+            f"runpy.run_path({script!r}, run_name='__main__')")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=cs.ROOT)
+    assert out.returncode != 0 and "no CUDA device" in out.stderr
+
+
 
 def _small_lp(n=8, seed=1):
     rng = np.random.default_rng(seed)
@@ -710,3 +720,190 @@ def test_kernel_rows_survive_lost_records(monkeypatch):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
     assert cs.kernel_rows(lambda: None, calls=20) == [
         ("gemv", pytest.approx(36.0)), ("gather", pytest.approx(2.5))]
+
+
+# ---- phases 23-26: the SDP, SOCP and QCQP examples' builders, copied as
+# numpy, and the phases' flow at a small size
+
+
+def test_pack_index_is_sympack_s():
+    from totsu_tpu_torch.ops import sympack
+    for k in (1, 2, 5, 48):
+        rr, cc = cs.pack_index(k)
+        want = sympack._pack_index(k)
+        np.testing.assert_array_equal(rr, want[0])
+        np.testing.assert_array_equal(cc, want[1])
+    x = np.arange(1.0, 7.0)
+    np.testing.assert_array_equal(cs.packed_matrix(x, 3), [[1, 2, 4],
+                                                           [2, 3, 5],
+                                                           [4, 5, 6]])
+
+
+def test_make_partitioning_is_the_example_build():
+    # the example's W, and the data its solve_sdp hands to problems.sdp
+    import partitioning_sdp
+    import totsu_tpu as jt
+    w, c, f_mats, a, b = cs.make_partitioning(4, 3)
+    np.testing.assert_array_equal(w, partitioning_sdp.build(4, 3))
+    seen = {}
+
+    class Spy:
+        class problems:
+            @staticmethod
+            def sdp(*args):
+                seen["args"] = args
+                return jt.problems.sdp(*args)
+
+    partitioning_sdp.solve_sdp(w, Spy, jt.SolverParam(max_iter=1))
+    for got, want in zip((c, f_mats, a, b), seen["args"]):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_make_partitioning_structured_is_the_benchmark_build():
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
+                                    "benchmarks"))
+    import benchmark_sdp
+    for l in (8, 12, 48):
+        w, c, neg_d, sel, b = cs.make_partitioning_structured(l)
+        cj, aj, bj, wj = benchmark_sdp.build_partitioning(l)
+        np.testing.assert_array_equal(w, wj)
+        np.testing.assert_array_equal(c, np.asarray(cj))
+        np.testing.assert_array_equal(b, np.asarray(bj))
+        np.testing.assert_array_equal(neg_d, np.asarray(aj.ops[0].d))
+        np.testing.assert_array_equal(sel, np.asarray(aj.ops[1].a))
+    # the benchmark's k = 48 graph is the example's 8 x 6 grid
+    np.testing.assert_array_equal(cs.make_partitioning_structured(48)[0],
+                                  cs.make_partitioning(8, 6)[0])
+
+
+def test_nearestcorr_is_the_example_build():
+    import jax.numpy as jnp
+    import nearestcorr_batch_sdp
+    from totsu_tpu.ops import sympack
+    np.testing.assert_array_equal(cs.make_noisy_covs(3, 5),
+                                  nearestcorr_batch_sdp.make_noisy_covs(3, 5))
+    a, c, sn = cs.nearestcorr_data(5)
+    aj, cj, lay, diag_pos, snj = nearestcorr_batch_sdp.build(5, jnp.float64)
+    assert sn == snj
+    np.testing.assert_array_equal(a, np.asarray(aj))
+    np.testing.assert_array_equal(c, np.asarray(cj))
+    assert [(f.kind, f.dim, f.count) for f in lay.factors] == [
+        ("soc", 1 + sn, 1), ("psd", sn, 1), ("zero", 5, 1)]
+    s = cs.make_noisy_covs(1, 5)[0]
+    want = np.concatenate([[0.0], -np.asarray(sympack.pack(
+        jnp.asarray(s), scaled=True)), np.zeros(sn), np.ones(5)])
+    np.testing.assert_allclose(cs.nearestcorr_b(s), want, rtol=1e-15)
+
+
+def test_make_trajplan_and_torus_are_the_example_builds():
+    import toruscompl_socp
+    import trajplan_qcqp
+    got = cs.make_trajplan(12, 300.0)
+    want = trajplan_qcqp.build(12, 300.0)
+    for g, w in zip(got, want[:5]):
+        np.testing.assert_array_equal(g, w)
+    got = cs.make_torus(5, 4)
+    want = toruscompl_socp.build(5, 4)
+    for g, w in zip(got[:7], want[:7]):
+        if isinstance(g, list):
+            assert len(g) == len(w)
+            for gi, wi in zip(g, w):
+                np.testing.assert_array_equal(gi, wi)
+        else:
+            np.testing.assert_array_equal(g, w)
+    assert got[7] == want[7]
+    np.testing.assert_array_equal(got[8], want[8])
+
+
+def test_cpu_references_at_small_size():
+    ref = cs.cpu_references(lp_n=40, grid24=(4, 2), torus=(5, 4),
+                            traj=(12, 300.0))
+    assert ref["partitioning_status"] == ref["torus_status"] == 1
+    assert ref["traj_viol"] <= 1e-6
+    # HiGHS on the n = 40 benchmark LP, as phase 4 reads it
+    from scipy.optimize import linprog
+    c, a, b = cs.make_lp(40)
+    hi = linprog(c.astype(np.float64), A_ub=a.astype(np.float64),
+                 b_ub=b.astype(np.float64), bounds=(None, None),
+                 method="highs")
+    assert ref["lp"]["status"] == 0 and ref["lp"]["fun"] == hi.fun
+    np.testing.assert_array_equal(ref["lp"]["x"], hi.x)
+    # the dense form of the same SDP agrees with the structured reference
+    import totsu_tpu_torch as tt
+    w, c, f_mats, a, b = cs.make_partitioning(4, 2)
+    r = tt.problems.sdp(c, f_mats, a, b, device="cpu").solve(
+        tt.SolverParam(max_iter=100_000, eps_acc=1e-6, profile="fast"))
+    obj = float(np.trace(w @ cs.packed_matrix(r.x.numpy(), 8)))
+    assert abs(obj - ref["partitioning"]) <= 1e-4 * abs(obj)
+
+
+def test_cpu_references_run_in_a_child_without_the_card():
+    child = cs.start_cpu_references(lp_n=20, grid24=[2, 2], torus=[3, 2],
+                                    traj=[6, 300.0])
+    out, err = child.communicate(timeout=300)
+    assert child.returncode == 0, err
+    import json
+    ref = json.loads(out.strip().splitlines()[-1])
+    assert set(ref) >= {"lp", "partitioning", "torus", "traj"}
+
+
+def test_cpu_references_child_runs_on_its_own_cores():
+    import json
+    import os
+    core = max(os.sched_getaffinity(0))
+    child = cs.start_cpu_references(lp_n=20, grid24=[2, 2], torus=[3, 2],
+                                    traj=[6, 300.0], cores=[core])
+    out, err = child.communicate(timeout=300)
+    assert child.returncode == 0, err
+    assert json.loads(out.strip().splitlines()[-1])["cores"] == [core]
+
+
+def test_sdp_phases_run_on_the_cpu_at_a_small_size(monkeypatch, capsys):
+    # phases 23-26's flow (every solve, gate and line) at small sizes on
+    # the CPU, the card's timers stubbed and kernel J's launch standing in
+    # for its plain version (counted as a launch)
+    import totsu_tpu_torch as tt
+    from totsu_tpu_torch.ops.kernels import dual_matvec as dm
+    from totsu_tpu_torch.ops.kernels import megakernel as mk
+    from totsu_tpu_torch.ops.kernels import psd_jacobi as pj
+
+    def timed(fn, *args, **kw):
+        fn()
+        return 1e-3
+
+    def launch(v, scaled=True, sweeps=None):
+        pj.launches += 1
+        return pj.proj_psd_jacobi_plain(v, scaled, sweeps)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **kw: None)
+    monkeypatch.setattr(cs, "device_ms", timed)
+    monkeypatch.setattr(cs, "stream_ms", timed)
+    monkeypatch.setattr(cs, "profile_loop",
+                        lambda fn, iters: (fn(), (1.0, 0.5, 9.0, []))[1])
+    monkeypatch.setattr(pj, "proj_psd_jacobi_cuda", launch)
+    monkeypatch.setattr(pj, "proj_psd_jacobi",
+                        lambda v, scaled=True, sweeps=None: launch(
+                            v.reshape(-1, v.shape[-1]), scaled,
+                            sweeps).reshape(v.shape))
+    # the trajectory QCQP needs some 10^5 iterations at any size that is
+    # feasible; its flow runs on min 0.5 |x|^2, |x| <= cap, x1 + x2 = 1
+    monkeypatch.setattr(cs, "make_trajplan", lambda t_cap, a_cap: (
+        np.stack([np.eye(2), np.eye(2)]), np.zeros((2, 2)),
+        np.array([0.0, -0.5 * a_cap * a_cap]), np.ones((1, 2)),
+        np.ones(1)))
+    kernels = {"dual_matvec": dm, "megakernel": mk, "cone_proj": cp,
+               "psd_jacobi": pj}
+    kw = dict(grid24=(4, 2), torus=(5, 4), traj=(12, 2.0))
+    counts, record = cs.sdp_phases(
+        tt, torch.device("cpu"), kernels,
+        lambda: cs.cpu_references(lp_n=20, **kw),
+        shapes23=((4, 3), (5, 2)), ks25=(6, 8, 10), iters25=(10, 6),
+        prof_iters25=4, cov=(1, 4), **kw)
+    assert counts["psd_jacobi"] > 0 and counts["megakernel"] == 0
+    assert record["launches"] == counts["psd_jacobi"]
+    assert set(record) >= {"name", "route", "source", "replaces", "launches",
+                           "max_abs_err", "ms", "plain_ms", "bound_ms",
+                           "bound_by", "library_ms"}
+    out = capsys.readouterr().out
+    for phase in (23, 24, 25, 26):
+        assert f"\nphase {phase} " in out

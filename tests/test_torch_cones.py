@@ -77,13 +77,6 @@ def test_soc_cases_by_construction():
                                rtol=1e-14)
 
 
-@pytest.mark.parametrize("kind,args", [("psd", (2,))])
-def test_unported_projections_raise(kind, args):
-    lay = tcone.ConeLayout([getattr(tcone, kind)(*args)])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lay.project(torch.zeros(lay.dim, dtype=torch.float64), dual=False)
-
-
 def test_cone_from_reference_round_trip():
     jl = jcone.ConeLayout([jcone.soc(3, 2), jcone.rsoc(4), jcone.rpos(2),
                            jcone.zero(1), jcone.psd(3, method="eigh"),

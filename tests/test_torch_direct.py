@@ -290,11 +290,14 @@ def test_direct_nostd_lp():
 
 
 def test_direct_all_problem_classes():
-    # the JAX test's SDP case waits for the psd cone (ROADMAP §1 item 11)
     p = tt.problems.qp(np.eye(2), [1.0, 2.0], g=[[-0.5, -1.0 / 3.0]],
                        h=[-1.0], device="cpu")
     r = tt.solve(p.c, p.a, p.b, p.cone, DIRECT)
     np.testing.assert_allclose(r.x.numpy()[:2], [2.0, 0.0], atol=1e-3)
+    # SDP (the core reference test)
+    c, a, b = _t([1.0], [[0.0], [-np.sqrt(2.0)], [-3.0]], [1.0, 0.0, 10.0])
+    r = tt.solve(c, a, b, tt.ConeLayout([tt.psd(2)]), DIRECT)
+    np.testing.assert_allclose(float(r.x[0]), -2.0, atol=1e-3)
     c, a, b = _t([1.0, 1.0], [[0.0, 0.0], [-1.0, 0.0], [0.0, -1.0]],
                  [np.sqrt(2.0), 0.0, 0.0])
     r = tt.solve(c, a, b, tt.ConeLayout([tt.soc(3)]), DIRECT)

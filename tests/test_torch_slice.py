@@ -127,7 +127,12 @@ def test_port_never_imports_jax():
             "totsu_tpu_torch.solver.direct, "
             "totsu_tpu_torch.solver.scaling, "
             "totsu_tpu_torch.solver.api, totsu_tpu_torch.utils.env, "
-            "totsu_tpu_torch.problems.gp; "
+            "totsu_tpu_torch.problems.gp, totsu_tpu_torch.problems.sdp, "
+            "totsu_tpu_torch.problems.socp, totsu_tpu_torch.problems.qcqp, "
+            "totsu_tpu_torch.ops.jacobi, "
+            "totsu_tpu_torch.ops.kernels.psd_jacobi, "
+            "totsu_tpu_torch.utils.operator_check, "
+            "totsu_tpu_torch.utils.contour; "
             "print(sorted(m for m in sys.modules if m in ('jax', "
             "'totsu_tpu') or m.startswith(('jax.', 'jaxlib', "
             "'totsu_tpu.'))))")

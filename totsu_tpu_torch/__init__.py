@@ -9,13 +9,16 @@ homogeneous self-dual embedding of a conic LP
 iterated with the diagonally preconditioned Pock-Chambolle method on a
 dense or structured ``A`` (stacks, diagonal, sparse, blocked-ELL,
 matrix-free), over products of zero / nonnegative / second-order /
-rotated-second-order / exponential / power cones, with the LP, QP and GP
-reductions. Plain tensor code is PyTorch; the kernels of the path are CUDA
-C++ for ``sm_90a`` (``csrc/``):
+rotated-second-order / exponential / power / PSD cones and user-defined
+(custom) cones, with the LP, QP, QCQP, SOCP, SDP and GP reductions. Plain
+tensor code is PyTorch; the kernels of the path are CUDA C++ for
+``sm_90a`` (``csrc/``):
 
   * ``dual_matvec`` — the fused {A u, A^T v} pair of every update and check;
   * ``cone_proj``   — the blocked exp / pow cone projection of the host loop;
-  * ``megakernel``  — the whole pdhg solve in one launch (``kernel='mega'``).
+  * ``megakernel``  — the whole pdhg solve in one launch (``kernel='mega'``);
+  * ``psd_jacobi``  — the Jacobi PSD projection (``psd(k, method='jacobi')``),
+    one CTA per block.
 
 Tensors carry their device: a solve runs where its data lies. Data that
 is not a tensor yet (numpy, lists) goes to the CUDA card unless the caller
@@ -31,8 +34,7 @@ the JAX package does. Every engine checkpoints
 (``resume_state``); ``solve(chunk_iters=N)`` chains such calls, and
 ``log_period`` prints the host loops' progress.
 
-Not ported yet (ROADMAP.md): the PSD / custom projections, the QCQP / SOCP / SDP
-reductions, polish, diff, batching and distribution.
+Not ported yet (ROADMAP.md): polish, diff, batching and distribution.
 """
 
 from totsu_tpu_torch.solver.params import SolverParam, SolverStatus, SolverError
@@ -47,7 +49,7 @@ from totsu_tpu_torch.solver.operator import (
     HStackOp, BlockOp, ScaledOp, as_linop,
 )
 from totsu_tpu_torch.problems import (
-    ConicProblem, ProbLP, ProbQP, MatBuild,
+    ConicProblem, ProbLP, ProbQP, ProbQCQP, ProbSOCP, ProbSDP, MatBuild,
 )
 
 __version__ = "0.1.0"
@@ -59,5 +61,6 @@ __all__ = [
     "LinOp", "DenseOp", "DiagOp", "SparseOp", "BlockedEllOp", "ZeroOp", "CustomOp",
     "VStackOp", "HStackOp",
     "BlockOp", "ScaledOp", "as_linop",
-    "ConicProblem", "ProbLP", "ProbQP", "MatBuild",
+    "ConicProblem", "ProbLP", "ProbQP", "ProbQCQP", "ProbSOCP", "ProbSDP",
+    "MatBuild",
 ]

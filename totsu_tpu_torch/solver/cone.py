@@ -1,9 +1,9 @@
 """Cones as projection functions over a static product layout.
 
-Port of ``totsu_tpu.solver.cone`` for the pdhg slice: a cone is static
-metadata (a :class:`ConeLayout` of :class:`Factor` s, plain Python) plus
-projection functions over the concatenated slack vector. Runs of
-equal-size blocks are projected batched (reshape + row-wise math).
+Port of ``totsu_tpu.solver.cone``: a cone is static metadata (a
+:class:`ConeLayout` of :class:`Factor` s, plain Python) plus projection
+functions over the concatenated slack vector. Runs of equal-size blocks
+are projected batched (reshape + row-wise math).
 
 ========  =====================================================================
 zero      {0}^n; primal -> 0, dual -> identity
@@ -12,6 +12,9 @@ soc       {(s, v) : ||v|| <= s}; 3-case projection; self-dual
 rsoc      {x3^2+... <= 2 x1 x2, x1,x2 >= 0}; Givens-rotate into soc
 exp       {(r, s, t) : s e^{r/s} <= t, s > 0} closure; Newton-bisection root
 pow       {(x, y, z) : x^a y^(1-a) >= |z|, x, y >= 0}; Newton-bisection root
+psd       vec(S+^k) in the scaled-vec convention; eigh, Newton-Schulz or
+          Jacobi, then clip (``ops/sympack.py`` ``proj_psd_packed``)
+custom    the user's projection of (count, dim) blocks; dual by Moreau
 ========  =====================================================================
 
 The exp and pow cones are not self-dual: their dual projections use the
@@ -20,9 +23,10 @@ blocks go through the plain PyTorch cores below; for CUDA tensors through
 the blocked projection kernel (``ops/kernels/cone_proj.py``), which runs
 the same cases and Newton step with L lanes of a warp per block.
 
-``psd`` and ``custom`` factors can be built (so layouts carry across from
-the JAX package), but projecting them raises ``NotImplementedError``:
-they are ROADMAP §1 item 11.
+The PSD cone is self-dual. Its ``'jacobi'`` method projects all blocks
+of a factor in one launch of kernel J on a CUDA tensor
+(``ops/kernels/psd_jacobi.py``); ``'auto'`` factors are resolved per
+solve by :func:`resolve_auto_methods`.
 """
 
 import dataclasses
@@ -88,7 +92,14 @@ def rsoc(dim: int, count: int = 1) -> Factor:
 
 
 def psd(k: int, count: int = 1, method: str = "auto") -> Factor:
-    """PSD cone blocks vec(S+^k), each of packed length k(k+1)/2."""
+    """PSD cone blocks vec(S+^k), each of packed length k(k+1)/2.
+
+    ``method``: 'eigh' (exact; on the card ``torch.linalg.eigh``
+    synchronizes the host at every projection), 'ns' (Newton-Schulz
+    matrix sign, batched matmuls, about 5e-6 error floor), 'jacobi'
+    (parallel-order Jacobi, exact; one launch of kernel J per factor on
+    the card) or 'auto' (picked per solve by
+    :func:`resolve_auto_methods`)."""
     if method not in ("auto", "eigh", "ns", "jacobi"):
         raise ValueError(f"unknown PSD projection method {method!r}; "
                          "expected 'auto', 'eigh', 'ns' or 'jacobi'")
@@ -111,7 +122,16 @@ def powc(alpha: float, count: int = 1) -> Factor:
 def custom(dim: int, proj: Callable, count: int = 1, *,
            dual_proj: Optional[Callable] = None, grouped: bool = True,
            name: str = "custom") -> Factor:
-    """User-defined cone factor (projection not yet ported)."""
+    """User-defined cone factor (the reference's public ``Cone`` trait).
+
+    ``proj(blocks)`` is the Euclidean projection onto the primal cone K:
+    it receives a ``(count, dim)`` tensor on the solve's device, in its
+    dtype, and returns one of the same shape, device and dtype. The dual
+    projection is the Moreau form ``x + proj(-x)`` unless ``dual_proj``
+    gives one (for a self-dual cone, pass the same function).
+    ``grouped=False`` marks the cone separable per element, so the
+    diagonal preconditioner keeps per-element scales; the default groups
+    each block to one scale (:attr:`Factor.needs_group`)."""
     return Factor(CUSTOM, dim, count, variant=name, proj=proj,
                   dual_proj=dual_proj, grouped=grouped)
 
@@ -459,10 +479,19 @@ def _project_factor(f: Factor, seg: torch.Tensor, dual: bool) -> torch.Tensor:
         # tensors; duals by the Moreau identity
         from totsu_tpu_torch.ops.kernels import cone_proj
         out = cone_proj.cone_proj(blocks, f.kind, f.alpha, dual)
-    elif f.kind in (PSD, CUSTOM):
-        raise NotImplementedError(
-            f"projection onto the {f.kind!r} cone is not ported yet "
-            "(ROADMAP §1 item 11: remaining cones)")
+    elif f.kind == PSD:
+        # self-dual; an 'auto' factor projected outside a solve (nothing
+        # to resolve it against) uses the exact default, as in the JAX
+        # package; solve_jit resolves 'auto' at entry
+        out = sympack.proj_psd_packed(
+            blocks, scaled=True,
+            method="eigh" if f.variant in ("", "auto") else f.variant)
+    elif f.kind == CUSTOM:
+        if dual:
+            out = (f.dual_proj(blocks) if f.dual_proj is not None
+                   else blocks + f.proj(-blocks))  # Moreau decomposition
+        else:
+            out = f.proj(blocks)
     else:
         raise ValueError(f"unknown cone kind {f.kind!r}")
     return out.reshape(f.total)
@@ -513,3 +542,35 @@ class ConeLayout:
     def group_min(self, t: torch.Tensor) -> torch.Tensor:
         """Preconditioner grouping (see :meth:`group_reduce`)."""
         return self.group_reduce(t, torch.amin)
+
+
+def resolve_auto_methods(layout: ConeLayout, param) -> ConeLayout:
+    """Resolve ``psd(..., method='auto')`` factors to a projection method
+    for one solve; called at solve entry with the original param (before
+    the fast profile rewrites ``profile``), as in the JAX package.
+
+    * ``profile='fast'``, ``eps_acc >= 1e-4`` and ``k >= 16``: 'ns';
+    * else 'jacobi' for many small blocks (``k <= 16`` and ``count >=
+      64``);
+    * else 'eigh'.
+
+    The cuts are the JAX package's TPU measurements (its BASELINE.md SDP
+    sweep), ported as structure: unmeasured on the H100 (ROADMAP item
+    17)."""
+    if not any(f.kind == PSD and f.variant == "auto" for f in layout.factors):
+        return layout
+    fast = (getattr(param, "profile", "reference") == "fast"
+            and param.eps_acc >= 1e-4)
+    out = []
+    for f in layout.factors:
+        if f.kind == PSD and f.variant == "auto":
+            k = sympack.order_from_len(f.dim)
+            if fast and k >= 16:
+                v = "ns"
+            elif k <= 16 and f.count >= 64:
+                v = "jacobi"
+            else:
+                v = "eigh"
+            f = dataclasses.replace(f, variant=v)
+        out.append(f)
+    return ConeLayout(out)

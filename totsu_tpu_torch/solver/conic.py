@@ -37,7 +37,8 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
-from totsu_tpu_torch.solver.cone import ConeLayout, RSOC, EXP, POW, PSD
+from totsu_tpu_torch.solver.cone import (ConeLayout, RSOC, EXP, POW, PSD,
+                                         resolve_auto_methods)
 from totsu_tpu_torch.solver.operator import (LinOp, DenseOp, as_linop,
                                             full_f32_matmul, pin_dtype)
 from totsu_tpu_torch.solver.params import (SolverParam, SolverStatus,
@@ -645,6 +646,9 @@ def solve_jit(
 
 def _solve_jit(c, a, b, cone, param, warm_start, resume_state, row_sharding,
                device) -> SolveResult:
+    # psd(method='auto') factors first, with the original param (the
+    # fast profile rewrites ``profile``)
+    cone = resolve_auto_methods(cone, param)
     a_op = as_linop(a, device)
     if param.profile == "fast":
         param = _resolve_fast_profile(param, a_op, cone, row_sharding)
