@@ -1546,22 +1546,47 @@ def start_cpu_references(**kw):
         text=True, env=env, cwd=ROOT)
 
 
-def psd_jacobi_bound(pj, k, count, dtype):
+def psd_jacobi_bound(pj, k, count, dtype, sweeps=None):
     """Kernel J's bound: the packed blocks read and written once (bytes)
-    against the operations its source does (``psd_jacobi.ops_count``)."""
+    against the operations of the algorithm (``psd_jacobi.ops_count``)."""
     from totsu_tpu_torch.ops import jacobi
     elem = torch.empty(0, dtype=dtype).element_size()
     return bound_ms(2 * count * (k * (k + 1) // 2) * elem,
-                    pj.ops_count(k, count, jacobi.sweeps_for(k)), dtype)
+                    pj.ops_count(k, count, jacobi.sweeps_for(k, sweeps)),
+                    dtype)
 
 
-def psd_jacobi_phase(dev, shapes=PHASE23_SHAPES):
+def psd_jacobi_switches(pj, smem, sms, counts=(1, 132)):
+    """The smallest shape (k, count), over ``counts`` in turn, at which
+    ``psd_jacobi.plan`` picks each of its layouts (shared memory or
+    global, A whole in each CTA or split over the cluster, the cluster,
+    slots held in registers or read from the table)
+    in f32 or f64, on a card of ``sms`` SMs and ``smem`` bytes of shared
+    memory per block, less those of ``PHASE23_SHAPES``."""
+    seen, shapes = set(), []
+    for cnt in counts:
+        for k in range(1, pj.MAX_K + 1):
+            for dt in (torch.float32, torch.float64):
+                pl = pj.plan(k, cnt, dt, smem, sms)
+                key = (pl.smem_layout, pl.split, pl.cluster, pl.held)
+                if key not in seen:
+                    seen.add(key)
+                    if (k, cnt) not in shapes + list(PHASE23_SHAPES):
+                        shapes.append((k, cnt))
+    return shapes
+
+
+def psd_jacobi_phase(dev, shapes=PHASE23_SHAPES, switches=True):
     """Phase 23: kernel J against its plain version on the card at each
-    (k, count) of ``shapes``, in f32 and f64 (the error relative to
-    ||X||_F, a repeat bitwise), with its time by CUDA events, the plain
-    version's (wall), the library's (torch.linalg.eigh, clamp, rebuild:
-    device and wall, its host sync included), 'ns' and the bound. Returns
-    the rows by (k, count, dtype)."""
+    (k, count) of ``shapes`` and, on the card with ``switches``, at the
+    smallest shape of each further layout of its plan
+    (:func:`psd_jacobi_switches`; 16 sweeps past k = 256, where the sweep
+    count is the caller's), in f32 and f64 (the error relative to
+    ||X||_F, a repeat bitwise), with its plan, its time by CUDA events,
+    the plain version's (wall), the library's (torch.linalg.eigh, clamp,
+    rebuild: device and wall, its host sync included), 'ns' and the
+    bound (at a switch's shape the kernel's time alone). Returns the rows
+    by (k, count, dtype)."""
     from totsu_tpu_torch.ops import sympack
     from totsu_tpu_torch.ops.kernels import psd_jacobi as pj
     f32, f64 = torch.float32, torch.float64
@@ -1570,19 +1595,30 @@ def psd_jacobi_phase(dev, shapes=PHASE23_SHAPES):
     def us(x):
         return "n/a" if x is None else f"{1e3 * x:.2f}"
 
+    def card_plan(k, cnt, dt):
+        return pj.device_plan(k, cnt, dt, dev) if on_card else \
+            pj.plan(k, cnt, dt, 232_448)
+
+    shapes, extra = list(shapes), []
+    if on_card and switches:
+        extra = psd_jacobi_switches(pj, *pj.card_limits(dev))
+        print(f"phase 23 layout switches of the plan (k, count): {extra}",
+              flush=True)
+        shapes += extra
     rng = np.random.default_rng(23)
     tol23 = {f32: 1e-5, f64: 1e-12}
     rows23 = {}
     for k, cnt in shapes:
+        sweeps = None if k <= 256 else 16
         for dt in (f32, f64):
             v = torch.tensor(rng.normal(size=(cnt, k * (k + 1) // 2)),
                              dtype=dt, device=dev)
             scale = float(torch.linalg.vector_norm(v, dim=1).max())
-            out = pj.proj_psd_jacobi_cuda(v)
-            again = pj.proj_psd_jacobi_cuda(v)
+            out = pj.proj_psd_jacobi_cuda(v, sweeps=sweeps)
+            again = pj.proj_psd_jacobi_cuda(v, sweeps=sweeps)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            plain = pj.proj_psd_jacobi_plain(v)
+            plain = pj.proj_psd_jacobi_plain(v, sweeps=sweeps)
             torch.cuda.synchronize()
             plain_ms = 1e3 * (time.perf_counter() - t0)
             eigh = sympack.proj_psd_packed(v, method="eigh")
@@ -1593,11 +1629,8 @@ def psd_jacobi_phase(dev, shapes=PHASE23_SHAPES):
                   f"{err / scale:.2e} of ||X||_F against the plain "
                   f"version (limit {tol23[dt]:.0e}); repeat bitwise "
                   f"{torch.equal(out, again)}")
-            one_ms, _ = sync_time(lambda: pj.proj_psd_jacobi_cuda(v), 1)
-            calls = max(3, min(50, int(0.3 / max(one_ms, 1e-6))))
-
             def kern():
-                return pj.proj_psd_jacobi_cuda(v)
+                return pj.proj_psd_jacobi_cuda(v, sweeps=sweeps)
 
             def lib():
                 return sympack.proj_psd_packed(v, method="eigh")
@@ -1605,19 +1638,26 @@ def psd_jacobi_phase(dev, shapes=PHASE23_SHAPES):
             def ns():
                 return sympack.proj_psd_packed(v, method="ns")
 
-            kern_ms = _median(stream_ms(kern, calls), stream_ms(kern, calls))
-            lib_dev = device_ms(lib, calls=min(calls, 10), windows=1)
-            lib_wall = 1e3 * sync_time(lib, 5)[0]
-            # about 110 launches a call: few calls, so that the host
-            # queues them all behind the sleeping kernel
-            ns_ms = stream_ms(ns, 3)
-            bound = psd_jacobi_bound(pj, k, cnt, dt)
-            pl = pj.device_plan(k, cnt, dt, dev) if on_card else \
-                pj.plan(k, cnt, dt, 232_448)
+            if (k, cnt) in extra:  # a layout's check: its time alone
+                kern_ms = stream_ms(kern, 1)
+                lib_dev = lib_wall = ns_ms = None
+            else:
+                one_ms, _ = sync_time(kern, 1)
+                calls = max(3, min(50, int(0.3 / max(one_ms, 1e-6))))
+                kern_ms = _median(stream_ms(kern, calls),
+                                  stream_ms(kern, calls))
+                lib_dev = device_ms(lib, calls=min(calls, 10), windows=1)
+                lib_wall = 1e3 * sync_time(lib, 5)[0]
+                # about 110 launches a call: few calls, so that the host
+                # queues them all behind the sleeping kernel
+                ns_ms = stream_ms(ns, 3)
+            bound = psd_jacobi_bound(pj, k, cnt, dt, sweeps)
+            pl = card_plan(k, cnt, dt)
             rows23[(k, cnt, dt)] = dict(err=err, rel=err / scale,
                                         ms=kern_ms, plain_ms=plain_ms,
                                         lib_ms=lib_dev, lib_wall=lib_wall,
-                                        ns_ms=ns_ms, bound=bound)
+                                        ns_ms=ns_ms, bound=bound,
+                                        plan=pl.describe())
             print(f"  psd_jacobi k={k} count={cnt} {str(dt)[6:]}: "
                   f"{pl.describe()}; max error {err / scale:.2e} of "
                   f"||X||_F vs plain ({err_eigh:.2e} vs eigh); us kernel "

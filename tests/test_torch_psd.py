@@ -7,11 +7,13 @@ they agree to roundoff: within 1e-12 in f64, within 1e-5 of ||X||_F in
 f32 (the eigensolvers and matmul sums differ in order). JAX's Jacobi runs
 only at k <= 16, where its unrolled rounds compile in seconds.
 
-Kernel J (``csrc/psd_jacobi.cu``) cannot run here; its launch plan is a
-pure function checked below, and a numpy model of its arithmetic (packed
-A, the round-robin pairs computed from the round number, each 2 x 2 block
-of pairs rotated once) is held against the plain version. A CUDA
-tensor reaches the kernel or raises: a stubbed build failure shows it.
+Kernel J (``csrc/psd_jacobi.cu``) cannot run here; its launch plan and
+its block table are pure functions checked below, and a numpy model of
+its arithmetic (A by position in each CTA's block slots, two buffers, the
+pivot array's two slots in every CTA, the players of a round without a
+division, each CTA's rows of V, for clusters of 1 to 8 CTAs) is held
+against the plain version. A CUDA tensor reaches the kernel or raises: a
+stubbed build failure shows it.
 """
 
 import math
@@ -334,39 +336,153 @@ def test_cone_from_reference_keeps_the_psd_method():
 
 
 # ---------------------------------------------------------------------------
-# kernel J: its plan, a model of its arithmetic, and its no-fallback rule
+# kernel J: its plan, its block table, a model of its arithmetic, and its
+# no-fallback rule
 
 H100_SMEM = 232_448  # bytes a block may opt in to on an H100
+H100_SMS = 132
+F32, F64 = torch.float32, torch.float64
 
 
-@pytest.mark.parametrize("k,dtype,where,threads", [
-    (8, torch.float32, (True, True), 32),
-    (8, torch.float64, (True, True), 32),
-    (16, torch.float32, (True, True), 128),
-    (48, torch.float32, (True, True), 512),
-    (49, torch.float64, (True, True), 512),
-    (128, torch.float32, (True, True), 512),
-    (128, torch.float64, (True, True), 512),
-    (194, torch.float32, (True, True), 512),
-    (196, torch.float32, (True, False), 512),
-    (256, torch.float32, (True, False), 512),
-    (256, torch.float64, (False, False), 512),
-])
-def test_plan(k, dtype, where, threads):
-    pl = pj.plan(k, 16, dtype, H100_SMEM)
-    elem = 4 if dtype == torch.float32 else 8
+# (k, count, dtype) -> (cluster, A and V in shared memory, A split over
+# the cluster, slots held in registers, threads): phase 23's shapes of
+# chip_smoke.py and the shapes on either side of each switch of the
+# plan's layout
+PLAN_CASES = {
+    (8, 1, F32): (1, True, False, True, 32),
+    (8, 1, F64): (1, True, False, True, 32),
+    (8, 16, F32): (1, True, False, True, 32),
+    (8, 512, F64): (1, True, False, True, 32),
+    (16, 64, F32): (1, True, False, True, 32),
+    (16, 64, F64): (1, True, False, True, 32),
+    (16, 1, F32): (1, True, False, True, 32),
+    (17, 1, F32): (4, True, False, True, 32),
+    (48, 1, F32): (4, True, False, True, 160),
+    (48, 1, F64): (4, True, False, True, 160),
+    (64, 1, F32): (4, True, False, True, 288),
+    (65, 1, F32): (8, True, False, True, 288),
+    (128, 1, F32): (8, True, False, True, 512),
+    (128, 1, F64): (8, True, False, True, 512),
+    (128, 8, F32): (8, True, False, True, 512),
+    (128, 9, F32): (4, True, False, True, 512),
+    (128, 16, F32): (4, True, False, True, 512),
+    (128, 132, F32): (1, True, False, True, 512),
+    (128, 132, F64): (2, True, False, True, 512),
+    (148, 1, F64): (8, True, False, True, 512),
+    (149, 1, F64): (16, True, False, True, 512),
+    (152, 1, F64): (16, True, False, True, 512),
+    (153, 1, F64): (8, True, True, True, 416),
+    (160, 1, F32): (8, True, False, False, 512),
+    (192, 1, F32): (8, True, False, False, 512),
+    (193, 1, F32): (16, True, False, False, 512),
+    (193, 1, F64): (16, True, True, True, 352),
+    (256, 1, F32): (16, True, True, True, 288),
+    (256, 1, F64): (16, True, True, True, 512),
+    (256, 132, F64): (8, True, True, True, 512),
+    (155, 132, F64): (2, True, True, True, 512),
+    (409, 1, F32): (16, True, True, True, 512),
+    (409, 1, F64): (1, False, False, False, 512),
+    (511, 1, F32): (16, True, True, False, 512),
+    (587, 1, F32): (1, False, False, False, 512),
+}
+
+
+@pytest.mark.parametrize("k,count,dtype", sorted(PLAN_CASES, key=str))
+def test_plan(k, count, dtype):
+    cluster, smem, split, held, threads = PLAN_CASES[(k, count, dtype)]
+    pl = pj.plan(k, count, dtype, H100_SMEM, H100_SMS)
+    elem = 4 if dtype == F32 else 8
     kp = k + k % 2
-    assert (pl.a_smem, pl.v_smem) == where
-    assert pl.kp == kp and pl.count == 16 and pl.threads == threads
-    assert pl.threads % 32 == 0 and pl.threads <= pj.MAX_THREADS
-    assert pl.smem_bytes == pj.smem_bytes(k, *where, elem) <= H100_SMEM
-    # the layout the kernel reads: A packed, V^T, c and s, the pairs
-    assert pl.smem_bytes == (elem * (kp * (kp + 1) // 2 * where[0]
-                                     + kp * kp * where[1] + 2 * kp) + 4 * kp)
-    assert pl.scratch_elems == ((not where[0]) * kp * (kp + 1) // 2
-                                + (not where[1]) * kp * kp)
+    h = kp // 2
+    assert (pl.cluster, pl.smem_layout, pl.split, pl.held, pl.threads) == (
+        cluster, smem, split, held, threads)
+    assert pl.k == k and pl.kp == kp and pl.count == count
+    assert pl.warps == threads // 32 and threads % 32 == 0
+    assert threads <= pj.MAX_THREADS
+    # V's rows split over the cluster in 16-byte groups; A's block slots
+    # of the (P, Q) triangle in equal shares, or all of them in each CTA
+    assert pl.rows == -(-(-(-kp // cluster)) // (16 // elem)) * (16 // elem)
+    assert pl.rows * cluster >= kp
+    nblk = h * (h + 1) // 2
+    assert pl.slots == (-(-nblk // cluster) if split else nblk)
+    # a warp's run of slots, a lane's slots in registers
+    assert pl.warp_slots == -(-pl.slots // pl.warps)
+    assert pl.held == (smem and pl.warp_slots
+                       <= 32 * pj.SLOTS_PER_THREAD[split])
+    # shared memory per CTA: A's two buffers (or the rebuild's staging), V,
+    # two slots of the pivot array with a sink (or each pair's diagonal
+    # slot), each warp's c and s and list of the pairs it needs
+    w = 16 // elem
+
+    def up(x):
+        return -(-x // w) * w
+    region = up(max(8 * pl.slots, kp * pl.rows))
+    piv = up(2 * (kp + h + 1))
+    rot = pl.warps * (up(kp) + -(-4 * h // 16) * 16 // elem)
+    if smem:
+        assert pl.smem_bytes == elem * (region + kp * pl.rows + piv + rot)
+        assert pl.scratch_elems == 0
+    else:
+        assert cluster == 1 and not split and pl.rows == up(kp)
+        assert pl.smem_bytes == elem * piv
+        assert pl.scratch_elems == region + kp * pl.rows + rot
+    assert pl.smem_bytes <= H100_SMEM
     assert pl.set_attribute == (pl.smem_bytes > 48 * 1024)
-    assert pl.describe().startswith(f"k={k}: 16 CTAs x {threads} threads")
+    assert pl.nonportable == (cluster > 8)
+    text = pl.describe()
+    assert text.startswith(f"k={k}: {count} x {cluster} CTA")
+    assert f"{threads} threads" in text
+    assert ("global scratch" if not smem else "split over the cluster"
+            if split else "whole in each CTA") in text
+    assert ("read from the table" in text) == (not held)
+    assert ("opt-in" in text) == pl.set_attribute
+    # a pure function
+    assert pj.plan(k, count, dtype, H100_SMEM, H100_SMS) == pl
+
+
+def _fits(k, count, dtype, cluster, split):
+    try:
+        pj.plan(k, count, dtype, H100_SMEM, H100_SMS, cluster=cluster,
+                split=split)
+        return True
+    except ValueError:
+        return False
+
+
+def test_plan_cluster_rule():
+    # the size the order wants while count x size fits a SM_SHARE-th of
+    # the SMs (a cluster sits in one GPC); the whole
+    # of A in each CTA where it fits one, at the least cluster that fits
+    # at or above that size; else A split over the least cluster that
+    # holds its slots in registers (or fits) at or above it
+    for dtype in (F32, F64):
+        for k in range(1, 420, 7):
+            for count in (1, 8, 16, 33, 132, 1000):
+                pl = pj.plan(k, count, dtype, H100_SMEM, H100_SMS)
+                if not pl.smem_layout:
+                    assert not any(_fits(k, count, dtype, c, sp)
+                                   for c in pj.CLUSTERS for sp in (0, 1))
+                    continue
+                kp = k + k % 2
+                want = next((c for top, c in pj.CLUSTER_WANT if kp <= top),
+                            16)
+                size = min(want, max(
+                    c for c in pj.CLUSTERS
+                    if c == 1 or count * c * pj.SM_SHARE <= H100_SMS))
+                whole = [c for c in pj.CLUSTERS
+                         if _fits(k, count, dtype, c, False)]
+                if whole:
+                    assert not pl.split and pl.cluster == min(
+                        [c for c in whole if c >= size] or [max(whole)])
+                    continue
+                parts = [c for c in pj.CLUSTERS[1:]
+                         if _fits(k, count, dtype, c, True)]
+                held = [c for c in parts if pj.plan(
+                    k, count, dtype, H100_SMEM, H100_SMS, cluster=c,
+                    split=True).held]
+                least = min(held or parts)
+                assert pl.split and pl.cluster == min(
+                    c for c in parts if c >= max(least, size))
 
 
 def test_plan_refuses():
@@ -374,8 +490,18 @@ def test_plan_refuses():
         pj.plan(8, 1, torch.bfloat16, H100_SMEM)
     with pytest.raises(ValueError, match="k 0"):
         pj.plan(0, 1, torch.float32, H100_SMEM)
+    with pytest.raises(ValueError, match="k 4097"):
+        pj.plan(4097, 1, torch.float32, H100_SMEM)
+    with pytest.raises(ValueError, match="cluster 3"):
+        pj.plan(8, 1, torch.float32, H100_SMEM, cluster=3)
+    with pytest.raises(ValueError, match="threads 48"):
+        pj.plan(8, 1, torch.float32, H100_SMEM, threads=48)
+    with pytest.raises(ValueError, match="does not fit a cluster of 1"):
+        pj.plan(256, 1, torch.float32, H100_SMEM, cluster=1)
+    with pytest.raises(ValueError, match="does not fit a cluster of 2"):
+        pj.plan(256, 1, torch.float32, H100_SMEM, cluster=2, split=False)
     with pytest.raises(ValueError, match="shared"):
-        pj.plan(256, 1, torch.float32, 1024)  # not even c, s and pairs
+        pj.plan(256, 1, torch.float32, 1024)  # not even the pivot array
 
 
 def test_ops_count():
@@ -391,140 +517,291 @@ def test_ops_count():
         + 2 * 7 * 28 + 2 * 28
 
 
-def _c_mod(a, n):
-    """C's ``%`` on ints (truncating)."""
-    return int(math.fmod(a, n))
-
-
-def _player(pos, rd, kp):
-    """``psd_jacobi.cu`` ``player``, with C's integer semantics."""
-    if pos == 0:
-        return 0
+def _lim(x, r, kp):
+    """``psd_jacobi.cu``: the low position X of a pair holds its smaller
+    row in round r."""
     n = kp - 1
-    return 1 + _c_mod(_c_mod(pos - 1 - rd, n) + n, n)
-
-
-def _unpack_index(p):
-    """``psd_jacobi.cu`` ``unpack_index``: (row, column) of packed p."""
-    q = int((np.sqrt(np.float32(8 * p + 1), dtype=np.float32) - 1) * 0.5)
-    while q * (q + 1) // 2 > p:
-        q -= 1
-    while (q + 1) * (q + 2) // 2 <= p:
-        q += 1
-    return p - q * (q + 1) // 2, q
+    return (x == 0) | (r < x) | (r >= n - x)
 
 
 @pytest.mark.parametrize("kp", [2, 4, 8, 16, 50, 256])
 def test_kernel_pairs_are_the_schedule(kp):
+    # the kernel's players, by position and round without a division, are
+    # the schedule's; each position's player moves to _next_pos in the
+    # next round; and the low position holds the smaller row where _lim
+    # says so
     sched = tjac._schedule(kp)
+    pos = np.arange(kp)
+    x = np.arange(kp // 2)
     for rd in range(kp - 1):
+        players = pj.player(pos, rd, kp)
         part = [None] * kp
         for p in range(kp // 2):
-            a, b = _player(p, rd, kp), _player(kp - 1 - p, rd, kp)
+            a, b = players[p], players[kp - 1 - p]
             part[a], part[b] = b, a
         assert tuple(part) == sched[rd]
+        nxt = pj.player(pj._next_pos(pos, kp), (rd + 1) % (kp - 1), kp)
+        assert (nxt == players).all()
+        np.testing.assert_array_equal(
+            _lim(x, rd, kp), players[x] < players[kp - 1 - x])
+    # after a sweep the positions are the rows again
+    assert (pj.player(pos, 0, kp) == pos).all()
 
 
-def test_kernel_unpack_index():
-    got = [_unpack_index(p) for p in range(tsym.tri_len(300))]
-    rr, cc = tsym._pack_index(300)
-    assert got == list(zip(rr.tolist(), cc.tolist()))
+def _decode(tab):
+    """The table's fields: (P, Q, valid), destinations (rank, offset) of
+    the four values, their pivot-array indices."""
+    t = tab.view(np.uint32).astype(np.int64)
+    valid = t[..., 0] != 0xFFFFFFFF
+    p, q = t[..., 0] & 0xFFFF, t[..., 0] >> 16
+    codes = t[..., 1:5]
+    piv = np.stack([t[..., 5] & 0xFFFF, t[..., 5] >> 16,
+                    t[..., 6] & 0xFFFF, t[..., 6] >> 16], axis=-1)
+    return p, q, valid, codes >> 24, codes & 0xFFFFFF, piv
 
 
-def _pidx(i, j):
-    """``psd_jacobi.cu`` ``pidx``: packed index of (i, j), either order."""
-    return np.where(i <= j, j * (j + 1) // 2 + i, i * (i + 1) // 2 + j)
+@pytest.mark.parametrize("kp,cluster", [(2, 1), (4, 2), (8, 1), (8, 4),
+                                        (16, 16), (50, 1), (50, 8),
+                                        (128, 8), (256, 16)])
+def test_block_table(kp, cluster):
+    h = kp // 2
+    tab = pj.block_table(kp, cluster)
+    nblk = h * (h + 1) // 2
+    slots = -(-nblk // cluster)
+    assert tab.shape == (cluster, slots, pj.DESC) and tab.dtype == np.int32
+    p, q, valid, rank, off, piv = _decode(tab)
+    # every block (P <= Q) once, in compact tiles: CTA c owns slots
+    # 0 .. n_c - 1 (value e of slot s at e * slots + s), empty slots are
+    # all ones
+    assert valid.sum() == nblk
+    assert sorted(zip(p[valid], q[valid])) == [
+        (a, b) for a in range(h) for b in range(a, h)]
+    for c in range(cluster):
+        n_c = valid[c].sum()
+        assert valid[c, :n_c].all() and not valid[c, n_c:].any()
+        assert (tab[c, n_c:] == -1).all()
+    # the destinations are a permutation of the CTAs' value places
+    # (each value moves to its next positions' block; the diagonal block's
+    # unused mirror to its own place)
+    seen = np.zeros((cluster, 4, slots), np.int64)
+    np.add.at(seen, (rank[valid], off[valid] // slots, off[valid] % slots),
+              1)
+    for c in range(cluster):
+        n_c = valid[c].sum()
+        assert (seen[c, :, :n_c] == 1).all() and not seen[c, :, n_c:].any()
+    # a value's destination holds the same matrix entry in the next round
+    hi = kp - 1
+    place = {}
+    for c in range(cluster):
+        for s in np.nonzero(valid[c])[0]:
+            a, b = p[c, s], q[c, s]
+            for e, (u, v) in enumerate(((a, b), (a, hi - b), (hi - a, b),
+                                        (hi - a, hi - b))):
+                place[(c, e * slots + s)] = (u, v)
+    for rd in range(min(kp - 1, 6)):
+        for c in range(cluster):
+            for s in np.nonzero(valid[c])[0]:
+                for e in range(4):
+                    if p[c, s] == q[c, s] and e == 2:
+                        continue
+                    u, v = place[(c, e * slots + s)]
+                    du, dv = place[(rank[c, s, e], off[c, s, e])]
+                    nu, nv = pj._next_pos(np.array([u, v]), kp)
+                    assert {int(nu), int(nv)} == {int(du), int(dv)}
+                    assert pj.player(du, (rd + 1) % hi, kp) in (
+                        pj.player(u, rd, kp), pj.player(v, rd, kp))
 
 
-def _rotate_block(x11, x12, x21, x22, cs, ss, r1, r2, k1, k2):
-    """``psd_jacobi.cu`` ``rotate_block`` on rows (r1, r2), columns
-    (k1, k2)."""
-    b11 = x11 * cs[k1] - x12 * ss[k1]
-    b12 = x12 * cs[k2] - x11 * ss[k2]
-    b21 = x21 * cs[k1] - x22 * ss[k1]
-    b22 = x22 * cs[k2] - x21 * ss[k2]
-    return (b11 * cs[r1] - b21 * ss[r1], b12 * cs[r1] - b22 * ss[r1],
-            b21 * cs[r2] - b11 * ss[r2], b22 * cs[r2] - b12 * ss[r2])
+@pytest.mark.parametrize("kp,cluster", [(2, 1), (8, 1), (8, 4), (50, 2),
+                                        (256, 16)])
+def test_block_table_pivots(kp, cluster):
+    # each value that is the next round's diagonal (index = its next
+    # position) or pivot (kp + the pair) says so, exactly once each; the
+    # others go to the sink kp + kp/2
+    h = kp // 2
+    p, q, valid, _, _, piv = _decode(pj.block_table(kp, cluster))
+    hi = kp - 1
+    got = {}
+    for c in range(cluster):
+        for s in np.nonzero(valid[c])[0]:
+            a, b = p[c, s], q[c, s]
+            for e, (u, v) in enumerate(((a, b), (a, hi - b), (hi - a, b),
+                                        (hi - a, hi - b))):
+                if a == b and e == 2:
+                    assert piv[c, s, e] == kp + h
+                    continue
+                nu, nv = (int(x) for x in pj._next_pos(np.array([u, v]), kp))
+                want = (nu if nu == nv else kp + min(nu, nv)
+                        if nu + nv == hi else kp + h)
+                assert piv[c, s, e] == want
+                if want != kp + h:
+                    assert want not in got
+                    got[want] = (nu, nv)
+    assert sorted(got) == list(range(kp + h))
 
 
-def _kernel_model_cta(vn, scaled, sweeps):
-    """numpy model of one CTA of kernel J on one packed block ``vn``: A as
-    its packed upper triangle, V^T, the pairs from ``_player``, c and s
-    once per pair, each 2 x 2 block of pairs (P <= Q) rotated once (on
-    P == Q the pivot from y12), the column update, the rebuild from V
-    scaled by sqrt(max(w, 0)); the kernel's order of operations, each
-    loop over threads one vector operation."""
+@pytest.mark.parametrize("kp,cluster,threads", [(256, 16, 288),
+                                                (128, 8, 512), (50, 4, 64),
+                                                (12, 8, 32)])
+def test_block_order_spreads_the_pivots(kp, cluster, threads):
+    # split over a cluster, every CTA makes an equal share of the next
+    # round's pivots and diagonals (each goes to every CTA), spread over
+    # its warps' runs of slots; every block once
+    h = kp // 2
+    p, q = pj.block_order(h, cluster, threads)
+    assert sorted(zip(p.tolist(), q.tolist())) == [
+        (a, b) for a in range(h) for b in range(a, h)]
+    tab = pj.block_table(kp, cluster, threads)
+    _, _, valid, _, _, piv = _decode(tab)
+    made = ((piv != kp + h) & valid[..., None]).sum(axis=-1)  # per slot
+    per_cta = made.sum(axis=1)
+    assert per_cta.sum() == kp + h
+    slots = tab.shape[1]
+    full = min(cluster, -(-(h * (h + 1) // 2) // slots))
+    assert per_cta.max() - per_cta[:full].min() <= 4
+    warps = threads // 32
+    warp = np.arange(slots) // -(-slots // warps)  # the warps' runs
+    for c in range(cluster):
+        by_warp = np.bincount(warp, weights=made[c] > 0)
+        assert by_warp.max() <= -(-(made[c] > 0).sum() // warps) + 1
+
+
+def _kernel_model_block(vn, scaled, sweeps, cluster, split):
+    """numpy model of one cluster of kernel J on one packed block ``vn``,
+    with the wrapper's block table: A by position in block slots, two
+    buffers, split over the CTAs (``split``) or whole in each (one copy
+    here: every CTA computes it alike). With ``split``, the pivot array's
+    two slots, one copy per CTA, each warp's rotations computed from its
+    own copy (they must agree bitwise), and each value that is flagged
+    sent to every CTA's copy; else each pair's pivot and diagonals read
+    from its diagonal block's slot. Each slot's values rotated and sent to
+    their destinations (each place written once a round); each CTA's rows
+    of V updated with the players of the round; the rebuild from every
+    CTA's rows scaled by sqrt(max(w, 0)). The kernel's order of
+    operations, each loop over threads one vector operation (its MUFU
+    divisions and roots exact here)."""
     dt = vn.dtype.type
+    elem = vn.dtype.itemsize
     sn = vn.shape[0]
     k = tsym.order_from_len(sn)
     kp = k + k % 2
-    h = kp // 2
+    h, n = kp // 2, kp - 1
+    ctas = cluster if split else 1  # the copies of A's slots
+    tab = pj.block_table(kp, ctas)
+    p, q, valid, rank, off, pidx = _decode(tab)
+    slots = tab.shape[1]
+    dslot = {int(p[0, s]): s for s in np.nonzero(valid[0] & (p[0] == q[0]))[0]}
+    rows = pj.rows_per_cta(kp, cluster, elem)
     rr, cc = tsym._pack_index(k)
-    off = (rr != cc) & bool(scaled)
-    bp, bq = np.array([_unpack_index(q)
-                       for q in range(tsym.tri_len(h))]).T
-    a = np.zeros(tsym.tri_len(kp), vn.dtype)
-    a[:sn] = np.where(off, vn * dt(1 / math.sqrt(2)), vn)
-    vt = np.eye(kp, dtype=vn.dtype)
+    scale = (rr != cc) & bool(scaled)
+    a0 = np.zeros((kp, kp), vn.dtype)
+    val = np.where(scale, vn * dt(1 / math.sqrt(2)), vn)
+    a0[rr, cc] = val
+    a0[cc, rr] = val
+    pa = np.zeros((2, ctas, 4 * slots), vn.dtype)
+    for c in range(ctas):
+        s = np.nonzero(valid[c])[0]
+        a, b = p[c, s], q[c, s]
+        for e, (u, v) in enumerate(((a, b), (a, n - b), (n - a, b),
+                                    (n - a, n - b))):
+            pa[0, c, e * slots + s] = np.where((a == b) & (e == 2), 0,
+                                               a0[u, v])
+    piv = np.zeros((2, cluster, kp + h + 1), vn.dtype)
+    piv[0, :, :kp] = np.diag(a0)
+    piv[0, :, kp:kp + h] = a0[np.arange(h), n - np.arange(h)]
+    vt = np.zeros((cluster, kp, rows), vn.dtype)
+    for c in range(cluster):
+        for i in range(rows):
+            if c * rows + i < kp:
+                vt[c, c * rows + i, i] = 1
+    x = np.arange(h)
+    par = 0
     for _ in range(sweeps):
-        for rd in range(kp - 1):
-            pa = np.array([_player(p, rd, kp) for p in range(h)])
-            pb = np.array([_player(kp - 1 - p, rd, kp) for p in range(h)])
-            i, j = np.minimum(pa, pb), np.maximum(pa, pb)
-            aij = a[_pidx(i, j)]
-            nz = aij != 0
-            theta = (a[_pidx(j, j)] - a[_pidx(i, i)]) / (
-                dt(2) * np.where(nz, aij, dt(1)))
-            t = np.where(theta == 0, dt(1), np.sign(theta) / (
-                np.abs(theta) + np.sqrt(theta * theta + dt(1))))
-            c = np.where(nz, dt(1) / np.sqrt(t * t + dt(1)), dt(1))
-            s = np.where(nz, t * c, dt(0))
-            cs = np.empty(kp, vn.dtype)
-            ss = np.empty(kp, vn.dtype)
-            cs[i], cs[j], ss[i], ss[j] = c, c, s, -s
-            r1, r2, k1, k2 = i[bp], j[bp], i[bq], j[bq]
-            idx = [_pidx(r1, k1), _pidx(r1, k2), _pidx(r2, k1),
-                   _pidx(r2, k2)]
-            x11, x12, x21, x22 = (a[ix] for ix in idx)
-            y = _rotate_block(x11, x12, x21, x22, cs, ss, r1, r2, k1, k2)
-            off_blk = bp != bq
-            a[idx[0]] = y[0]
-            a[idx[2][off_blk]] = y[2][off_blk]
-            a[idx[1]] = y[1]
-            a[idx[3]] = y[3]
-            v1, v2 = vt[i].copy(), vt[j].copy()
-            vt[i] = v1 * cs[i][:, None] - v2 * ss[i][:, None]
-            vt[j] = v2 * cs[j][:, None] - v1 * ss[j][:, None]
-    u = vt[:k, :k] * np.sqrt(np.maximum(
-        a[_pidx(np.arange(k), np.arange(k))], 0))[:, None]
-    x = np.einsum("jr,jc->rc", u, u)
-    return np.where(off, x[rr, cc] * dt(math.sqrt(2)), x[rr, cc])
+        for rd in range(n):
+            nxt = 1 - par
+            rots = []
+            for c in range(cluster):
+                pc = piv[par, c]
+                lim = _lim(x, rd, kp)
+                if split:
+                    dl, dh, a = pc[x], pc[n - x], pc[kp + x]
+                else:  # the diagonal blocks' slots
+                    at = np.array([dslot[i] for i in x], np.int64)
+                    dl, a, dh = (pa[par, 0, e * slots + at] for e in (0, 1, 3))
+                aii, ajj = np.where(lim, dl, dh), np.where(lim, dh, dl)
+                theta = (ajj - aii) / (dt(2) * np.where(a != 0, a, dt(1)))
+                u = np.abs(theta)
+                t = dt(1) / (u + np.sqrt(np.minimum(u * u + dt(1),
+                                                    dt(1e36))))
+                t = np.where(theta < 0, -t, t)
+                cr = dt(1) / np.sqrt(t * t + dt(1))
+                s = np.where(a != 0, t * cr, dt(0))
+                rots.append((np.where(a != 0, cr, dt(1)),
+                             np.where(lim, s, -s)))
+            for r2 in rots[1:]:
+                assert all((x1 == x2).all() for x1, x2 in zip(rots[0], r2))
+            rc, rs = rots[0]
+            written = np.zeros((ctas, 4 * slots), np.int64)
+            for c in range(ctas):
+                s = np.nonzero(valid[c])[0]
+                pp, qq = p[c, s], q[c, s]
+                x11, x12, x21, x22 = (pa[par, c, e * slots + s]
+                                      for e in range(4))
+                x21 = np.where(pp == qq, x12, x21)
+                cp, sp, cq, sq = rc[pp], rs[pp], rc[qq], rs[qq]
+                b11, b12 = x11 * cq - x12 * sq, x12 * cq + x11 * sq
+                b21, b22 = x21 * cq - x22 * sq, x22 * cq + x21 * sq
+                ys = (b11 * cp - b21 * sp, b12 * cp - b22 * sp,
+                      b21 * cp + b11 * sp, b22 * cp + b12 * sp)
+                for e in range(4):
+                    pa[nxt, rank[c, s, e], off[c, s, e]] = ys[e]
+                    np.add.at(written, (rank[c, s, e], off[c, s, e]), 1)
+                    if split:
+                        piv[nxt][:, pidx[c, s, e]] = ys[e]
+            for c in range(ctas):
+                n_c = valid[c].sum()
+                assert all((written[c, e * slots:e * slots + n_c] == 1).all()
+                           for e in range(4))
+            b1, b2 = pj.player(x, rd, kp), pj.player(n - x, rd, kp)
+            for c in range(cluster):
+                v1, v2 = vt[c, b1].copy(), vt[c, b2].copy()
+                vt[c, b1] = v1 * rc[:, None] - v2 * rs[:, None]
+                vt[c, b2] = v2 * rc[:, None] + v1 * rs[:, None]
+            par = nxt
+    if split:
+        w = piv[par, 0, :kp]
+    else:
+        w = np.array([pa[par, 0, dslot[b]] if b < h else
+                      pa[par, 0, 3 * slots + dslot[n - b]]
+                      for b in range(kp)])
+    ut = np.concatenate(list(vt), axis=1) * np.sqrt(np.maximum(w, 0))[:, None]
+    xp = np.einsum("br,bc->rc", ut, ut)[:k, :k]
+    return np.where(scale, xp[rr, cc] * dt(math.sqrt(2)), xp[rr, cc])
 
 
-def _kernel_model(v, scaled, sweeps):
-    """:func:`_kernel_model_cta` for every row of ``v`` (count, sn). At a
-    pivot that has converged to ~1e-170 theta^2 overflows and t = 0, as
-    on the card."""
-    with np.errstate(over="ignore"):
-        return np.stack([_kernel_model_cta(vn, scaled, sweeps)
-                         for vn in v])
+def _kernel_model(v, scaled, sweeps, cluster, split):
+    """:func:`_kernel_model_block` for every row of ``v`` (count, sn)."""
+    with np.errstate(over="ignore", divide="ignore", invalid="ignore"):
+        return np.stack([_kernel_model_block(vn, scaled, sweeps, cluster,
+                                             split) for vn in v])
 
 
+@pytest.mark.parametrize("cluster,split", [(1, False), (2, False),
+                                           (4, False), (2, True), (4, True),
+                                           (8, True)])
 @pytest.mark.parametrize("k", [1, 2, 5, 8, 11])
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
-def test_kernel_model_matches_plain(k, dtype):
+def test_kernel_model_matches_plain(k, dtype, cluster, split):
     v = _packed(k, 3, 40 + k).astype(dtype)
     v[1, :] = 0.0                       # all pivots zero: the identity
     v[2, tsym.tri_len(k) - 1] = 0.0     # a zero pivot among others
     sweeps = tjac.sweeps_for(k)
-    got = _kernel_model(v, True, sweeps)
-    want = pj.proj_psd_jacobi_plain(torch.from_numpy(v), True).numpy()
     scale = np.linalg.norm(v, axis=1).max()
     tol = 1e-13 if dtype == np.float64 else 2e-6
-    assert np.abs(got - want).max() <= tol * scale
-    got_u = _kernel_model(v, False, sweeps)
-    want_u = pj.proj_psd_jacobi_plain(torch.from_numpy(v), False).numpy()
-    assert np.abs(got_u - want_u).max() <= tol * scale
+    for scaled in (True, False):
+        got = _kernel_model(v, scaled, sweeps, cluster, split)
+        want = pj.proj_psd_jacobi_plain(torch.from_numpy(v), scaled).numpy()
+        assert np.abs(got - want).max() <= tol * scale
 
 
 def test_cpu_path_is_the_plain_version(monkeypatch):
