@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Builds the three CUDA kernels of the port from ``totsu_tpu_torch/csrc``
+Builds the four CUDA kernels of the port from ``totsu_tpu_torch/csrc``
 (nvcc, sm_90a, all at once), holds each against its plain PyTorch version
 on the card, drives the solver's main paths at full width (the n=1000
 benchmark LP, A 4000 x 1000 f32, and the exp-cone logistic regression,
@@ -20,7 +20,14 @@ and QCQP builders and the custom cone (phases 24-26: the partitioning
 SDP dense and structured with each PSD method, the nearest-correlation
 batch, the trajectory QCQP, the torus SOCP), whose f64 references run on
 the CPU in a child process (``--cpu-references``, used by the script
-itself). Each phase prints one line of its own
+itself); polish on the card (phase 27: the n=1000 LP in f32 and f64, the
+n=50 QP on the megakernel, the partitioning SDP at k = 48, which the
+polish declines, and at k = 6, which it accepts) and differentiation
+through solves (phase 28: DPi in closed form against central differences
+of kernels B and J, the n=1000 LP's gradients in f64 against HiGHS's
+active-set closed form and its forward-mode tangent, the JAX package's
+f32 box LP, a BlockedEllOp's tile cotangent against its dense twin's).
+Each phase prints one line of its own
 numbers; any failed check raises, so the script exits non-zero and prints
 no final line. It needs a CUDA device and the repository beside it; it imports
 nothing of JAX.
@@ -1460,8 +1467,10 @@ def structured_phases(tt, dev, kernels, n20=65_536, n21=4096, n21b=8192,
 # builders
 
 #: the CPU references' sizes: phase 4's LP, phases 24-26's partitioning
-#: SDP grid (k = 48), torus SOCP and trajectory QCQP
-REF_KW = dict(lp_n=1000, grid24=(8, 6), torus=(9, 7), traj=(30, 90.0))
+#: SDP grid (k = 48), torus SOCP and trajectory QCQP, and phase 27c's
+#: small partitioning grid (k = 6, a point the polish accepts)
+REF_KW = dict(lp_n=1000, grid24=(8, 6), torus=(9, 7), traj=(30, 90.0),
+              grid27=(3, 2))
 
 #: phase 23's (k, count): the nearest-correlation solves' launch (one
 #: instance a solve; the kernels record's row), the lockstep batch of 16,
@@ -1472,7 +1481,7 @@ PHASE23_SHAPES = ((8, 1), (8, 16), (8, 512), (16, 64), (48, 1), (128, 1),
                   (128, 16), (256, 1))
 
 
-def cpu_references(lp_n, grid24, torus, traj, cores=None):
+def cpu_references(lp_n, grid24, torus, traj, grid27=(3, 2), cores=None):
     """The CPU references of phases 4 and 24-26, in f64 (this runs in a
     child process beside the card's phases, on the CPU only, pinned to
     ``cores`` where given; the cores it ran on come back as ``cores``):
@@ -1481,7 +1490,8 @@ def cpu_references(lp_n, grid24, torus, traj, cores=None):
     * the partitioning SDP's objective <W, X> from the port's f64 solve
       at eps_acc 1e-6 (the structured form of phase 25, the same problem
       as phase 24's dense one: [diag(-dscale); selection] is the dense
-      A's own matrix), pdhg with Halpern, check_period 20;
+      A's own matrix), pdhg with Halpern, check_period 20; the same at
+      the small grid ``grid27`` to eps_acc 1e-9;
     * the torus SOCP's objective from the port's f64 solve at eps_acc
       1e-6 (profile='fast');
     * the trajectory QCQP's objective from SLSQP (the port's f64 solve
@@ -1500,20 +1510,24 @@ def cpu_references(lp_n, grid24, torus, traj, cores=None):
     lp = {"status": hi.status, "message": hi.message, "fun": hi.fun,
           "x": None if hi.x is None else hi.x.tolist(),
           "seconds": time.perf_counter() - t0}
-    x_num, y_num = grid24
-    w, c, neg_d, sel, b = make_partitioning_structured(x_num * y_num)
-    l = w.shape[0]
-    op = tt.VStackOp((tt.DiagOp(torch.tensor(neg_d, dtype=f64)),
-                      tt.DenseOp(torch.tensor(sel, dtype=f64))))
-    r = tt.solve_jit(torch.tensor(c, dtype=f64), op,
-                     torch.tensor(b, dtype=f64),
-                     tt.ConeLayout([tt.psd(l, method="eigh"), tt.zero(l)]),
-                     tt.SolverParam(max_iter=200_000, eps_acc=1e-6,
-                                    accel="halpern", check_period=20))
-    out = {"lp": lp, "partitioning": float(np.trace(w @ packed_matrix(
-        r.x.numpy(), l))), "partitioning_iters": r.iters,
-        "partitioning_status": r.status,
-        "cores": sorted(os.sched_getaffinity(0))}
+    def partitioning(grid, eps):
+        w, c, neg_d, sel, b = make_partitioning_structured(grid[0] * grid[1])
+        l = w.shape[0]
+        op = tt.VStackOp((tt.DiagOp(torch.tensor(neg_d, dtype=f64)),
+                          tt.DenseOp(torch.tensor(sel, dtype=f64))))
+        r = tt.solve_jit(
+            torch.tensor(c, dtype=f64), op, torch.tensor(b, dtype=f64),
+            tt.ConeLayout([tt.psd(l, method="eigh"), tt.zero(l)]),
+            tt.SolverParam(max_iter=200_000, eps_acc=eps, accel="halpern",
+                           check_period=20))
+        return float(np.trace(w @ packed_matrix(r.x.numpy(), l))), r
+
+    obj, r = partitioning(grid24, 1e-6)
+    obj27, r27 = partitioning(grid27, 1e-9)
+    out = {"lp": lp, "partitioning": obj, "partitioning_iters": r.iters,
+           "partitioning_status": r.status, "partitioning27": obj27,
+           "partitioning27_status": r27.status,
+           "cores": sorted(os.sched_getaffinity(0))}
     f, g_l, h_l, c_l, d_l, a, b, l_t, _ = make_torus(*torus)
     rt = tt.problems.socp(f, g_l, h_l, c_l, d_l, a, b, device=cpu).solve_jit(
         tt.SolverParam(max_iter=200_000, eps_acc=1e-6, profile="fast"))
@@ -1990,6 +2004,535 @@ def sdp_phases(tt, dev, kernels, refs, shapes23=PHASE23_SHAPES,
               "library_wall_ms": main_row["lib_wall"],
               "shape": list(shapes23[0])}
     return counts, record
+
+
+# ---- phases 27-28: polish and differentiation through solves
+
+#: phase 28's LSQR cap. The default 1,000 steps stop far short on the
+#: benchmark LP family (both packages, the CPU: at n = 300 the b gradient
+#: is 62% off after 1,000 steps and exact, 5e-9, after the 12,742 that
+#: rtol 1e-12 takes), so the phase runs LSQR to its tolerance
+LSQR_ITERS28 = 200_000
+
+#: phase 28a's factors: (name, factor); z, v and w are drawn N(0, 1)
+DPI28 = (("R+", ("rpos", 4000)), ("SOC", ("soc", 5, 400)),
+         ("RSOC", ("rsoc", 52, 20)), ("exp", ("expc", 2000)),
+         ("pow(1/2)", ("powc", 0.5, 2000)),
+         ("PSD (48, 1) jacobi", ("psd", 48, 1)),
+         ("PSD (8, 512) jacobi", ("psd", 8, 512)))
+
+
+def dpi_factor(tt, spec):
+    """Phase 28a's factor from its (maker, args...) entry."""
+    name, *args = spec
+    if name == "psd":
+        return tt.psd(*args, method="jacobi")
+    return getattr(tt, name)(*args)
+
+
+def exp_kink_free(v, p):
+    """(count,) mask of the exp blocks ``v`` (primal projections ``p``)
+    away from the cone's kinks: the projection optimal (<p, v - p> = 0 to
+    1e-12 |v|^2; the root finder stalls on about 1 block in 10,000
+    standard-normal ones) and not within 1e-3 |v| of the edge s = 0, where
+    central differences at h = 1e-6 see the edge."""
+    nv = torch.linalg.vector_norm(v, dim=1)
+    optimal = ((p * (v - p)).sum(dim=1).abs() <= 1e-12 * nv * nv)
+    edge = (p[:, 1] > 0) & (p[:, 1] < 1e-3 * nv)
+    return optimal & ~edge
+
+
+def dpi_phase(tt, dev, kernels, specs=DPI28, h=1e-6, seed=28):
+    """Phase 28a: DPi in closed form (``solver/dproj.py``) against central
+    differences of the card's own projection (kernel B for exp/pow,
+    kernel J for a 'jacobi' PSD factor) in f64, for the dual cone as the
+    diff's y part projects it: relative 1e-6 over the factor's blocks
+    away from the kinks, and <DPi v, w> against <v, DPi^T w> to 1e-12.
+    Returns the kernels' launches in the DPi builds (the diff's own
+    calls), and the line's parts."""
+    from totsu_tpu_torch.solver import cone as tc, dproj
+    f64 = torch.float64
+    rng = np.random.default_rng(seed)
+    counts = {k: 0 for k in kernels}
+    parts = []
+    for name, spec in specs:
+        f = dpi_factor(tt, spec)
+
+        def draw():
+            return torch.from_numpy(rng.normal(size=f.total)).to(dev, f64)
+
+        z, v, w = draw(), draw(), draw()
+        for mod in kernels.values():
+            mod.launches = 0
+        u, fwd, bwd = dproj.factor_dproj(f, z, True)
+        dv = fwd(v)
+        torch.cuda.synchronize()
+        built = {k: mod.launches for k, mod in kernels.items()}
+        for k in kernels:
+            counts[k] += built[k]
+        proj = tc._project_factor(f, z, True)
+        fd = (tc._project_factor(f, z + h * v, True)
+              - tc._project_factor(f, z - h * v, True)) / (2 * h)
+        keep = torch.ones(f.count, dtype=torch.bool, device=dev)
+        if f.kind == tc.EXP:
+            vk = -z.reshape(-1, 3)
+            keep = exp_kink_free(vk, (proj - z).reshape(-1, 3))
+        blk = f.total // f.count
+        d_k = (dv - fd).reshape(-1, blk)[keep]
+        f_k = fd.reshape(-1, blk)[keep]
+        err = float(torch.linalg.vector_norm(d_k)
+                    / torch.linalg.vector_norm(f_k))
+        lhs = float(dv @ w)
+        adj = abs(lhs - float(v @ bwd(w))) / max(abs(lhs), 1.0)
+        check(torch.equal(u, proj), f"DPi {name}: u is not the card's own "
+              "projection")
+        check(err <= 1e-6 and adj <= 1e-12,
+              f"DPi {name}: relative error {err:.3e} against central "
+              f"differences (limit 1e-6), adjoint {adj:.3e} (limit 1e-12)")
+        kept = int(keep.sum())
+        parts.append(f"{name} {err:.1e} / {adj:.0e}"
+                     + (f" ({kept} of {f.count} blocks kept)"
+                        if kept < f.count else "")
+                     + (f", launches {built}" if any(built.values())
+                        else ""))
+    return counts, parts
+
+
+def lsqr_profile(diff, dproj, cone, c, a_op, b, x, y, steps):
+    """(wall us, device-busy us, launches) per LSQR step of the backward
+    at the solution (x, y), ``steps`` steps under torch.profiler."""
+    n, m = c.shape[0], b.shape[0]
+    z = diff._embed_point(x, y, b - a_op.matvec(x))
+    dp = dproj.dproj_at(cone, n, m, z)
+    m_apply, mt_apply = diff._m_ops(dp, c, a_op, b)
+    rhs = dp.apply_t(torch.cat([x, y, torch.zeros(1, dtype=x.dtype,
+                                                  device=x.device)]))
+    return profile_loop(lambda: diff._lsqr(mt_apply, m_apply, rhs, steps,
+                                           0.0), steps)
+
+
+def active_closed_form(a, b, x):
+    """(d ||x||^2 / db, |B|) of an LP vertex x of A x <= b from its active
+    set B (slack within 1e-9 (1 + |b|)): 2 A_B^-T x on B, 0 elsewhere,
+    when |B| = n."""
+    slack = b - a @ x
+    act = np.nonzero(slack <= 1e-9 * (1.0 + np.abs(b)))[0]
+    grad = np.zeros_like(b)
+    if len(act) == a.shape[1]:
+        grad[act] = 2.0 * np.linalg.solve(a[act].T, x)
+    return grad, len(act)
+
+
+def ell_tile_cotangent(tt, ell, g_blocks, g_blocks_t, m, n, bm):
+    """The dense (m, n) A cotangent of a BlockedEllOp's tile cotangents:
+    ``blocks``' stored (not zero-padded) slots plus ``blocks_t``'s
+    transposed, and the mask of the stored tiles."""
+    def used(blocks):
+        return (blocks.abs().sum(dim=(1, 3)) > 0)[:, None, :, None]
+
+    fwd = tt.BlockedEllOp(g_blocks * used(ell.blocks), ell.cols,
+                          ell.blocks_t, ell.cols_t, m=m, n=n, bm=bm,
+                          bn=bm).to_dense()
+    bwd = tt.BlockedEllOp(g_blocks_t * used(ell.blocks_t), ell.cols_t,
+                          ell.blocks, ell.cols, m=n, n=m, bm=bm,
+                          bn=bm).to_dense()
+    tiles = tt.BlockedEllOp(torch.ones_like(ell.blocks) * used(ell.blocks),
+                            ell.cols, ell.blocks_t, ell.cols_t, m=m, n=n,
+                            bm=bm, bn=bm).to_dense() > 0
+    return fwd + bwd.T, tiles
+
+
+def polish_diff_phases(tt, dev, kernels, refs, lp_n=1000, qp_n=50,
+                       grid=(8, 6), grid27=(3, 2), box_n=700, ell_n=4096,
+                       dpi=DPI28, prof_steps=50, lsqr_iters=LSQR_ITERS28):
+    """Phases 27-28: polish and differentiation through solves on the card
+    (the sizes are arguments only so that the flow can be rehearsed
+    small). ``refs()`` returns the CPU references (HiGHS's x for the
+    n = ``lp_n`` LP, the partitioning SDP's f64 objective). Each path is
+    driven once through solve(..., polish=True) or a differentiable
+    solver, the launch counts set to 0 just before it. Returns the
+    kernels' launch counts over these paths."""
+    from totsu_tpu_torch import diff
+    from totsu_tpu_torch.solver import dproj
+    from totsu_tpu_torch.solver import polish as tpolish
+    f32, f64 = torch.float32, torch.float64
+    counts = {k: 0 for k in kernels}
+    # the launch gates hold on the card; a CPU rehearsal runs the plain
+    # versions, which count nothing
+    on_card = dev.type == "cuda"
+
+    def count(runs):
+        for r in runs.values():
+            for k in kernels:
+                counts[k] += r[2][k]
+
+    def rel2(got, want):
+        return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+    spans = []
+    real = time_calls(tpolish, ("host_matrix", "polish"), spans)
+    try:
+        # ---- phase 27: polish on the card. 27a: the n=1000 benchmark LP,
+        # phase 12's f32 fast-profile solve (the direct engine, eps_acc
+        # 1e-3) with polish=True, then an f64 solve at eps_acc 1e-6; the
+        # polished point must reach residuals <= 1e-9 and HiGHS's vertex.
+        # The polish declines the f32 point in both packages (the JAX
+        # package on the CPU: polished=False from its f32 solves at
+        # eps_acc 1e-3 and 1e-4, candidates at residuals 9e-3 and 3e-3):
+        # it then returns the solve unchanged, which the phase checks
+        t27 = time.perf_counter()
+        c1, a1, b1 = make_lp(lp_n)
+        lp_cone = tt.ConeLayout([tt.rpos(a1.shape[0])])
+        p_fast = tt.SolverParam(profile="fast", eps_acc=1e-3,
+                                max_iter=200_000)
+        p_f64 = tt.SolverParam(profile="fast", eps_acc=1e-6,
+                               max_iter=400_000)
+        t32 = [torch.from_numpy(v).to(dev) for v in (c1, a1, b1)]
+        t64 = [v.double() for v in t32]
+        runs27 = {}
+        split27 = {}
+        plain = tt.solve(*t32, lp_cone, p_fast)
+        for name, data, p in (("f32", t32, p_fast), ("f64", t64, p_f64)):
+            spans.clear()
+            runs27[name] = drive({f"LP n={lp_n} {name}, polish": (
+                lambda: tt.solve(*data, lp_cone, p, polish=True))},
+                kernels)
+            count(runs27[name])
+            split27[name] = (span_ms(spans, "host_matrix"),
+                             span_ms(spans, "polish"))
+        hi = refs()["lp"]
+        xh = np.asarray(hi["x"], np.float64)
+        a64, b64 = a1.astype(np.float64), b1.astype(np.float64)
+        _, n_act = active_closed_form(a64, b64, xh)
+        line27 = []
+        for name, runs in runs27.items():
+            (r, wall, cnt, _), = runs.values()
+            dense_ms, passes_ms = split27[name]
+            polished = r.x.dtype == f64
+            if not polished:
+                check(name == "f32" and torch.equal(r.x, plain.x)
+                      and r.iters == plain.iters,
+                      f"LP n={lp_n} {name}: the polish declined and the "
+                      "result is not the solve's own")
+                line27.append(f"{name} (eps_acc 1e-3, {r.iters} "
+                              "iterations): not polished "
+                              f"(the JAX package's answer), the solve "
+                              f"returned unchanged; polish {wall:.3f} s "
+                              f"of which A to the host {dense_ms:.1f} ms, "
+                              f"active-set passes {passes_ms:.1f} ms")
+                continue
+            x = r.x.cpu().numpy()
+            dx = rel2(x, xh)
+            obj = abs(float(c1.astype(np.float64) @ x) - hi["fun"]) \
+                / abs(hi["fun"])
+            gate_x = n_act == len(x)
+            check(float(r.cri_pri) <= 1e-9 and float(r.cri_dual) <= 1e-9
+                  and (dx <= 1e-6 if gate_x else obj <= 1e-9),
+                  f"LP n={lp_n} {name} polished: cri_pri "
+                  f"{float(r.cri_pri):.2e}, cri_dual "
+                  f"{float(r.cri_dual):.2e} (limit 1e-9), x from HiGHS's "
+                  f"{dx:.2e}, objective {obj:.2e} ({n_act} active rows)")
+            line27.append(
+                f"{name} ({r.iters} iterations): polished, cri_pri "
+                f"{float(r.cri_pri):.1e}, cri_dual {float(r.cri_dual):.1e}"
+                f", x from HiGHS's {dx:.1e} (relative 2-norm; vertex with "
+                f"{n_act} active rows{'' if gate_x else ', degenerate: objective gated'}"
+                f"), objective {obj:.1e}; {1e3 * wall:.1f} ms with the "
+                f"solve, of which A to the host {dense_ms:.1f} ms, "
+                f"active-set passes {passes_ms:.1f} ms")
+        print(f"phase 27a LP n={lp_n} (A {a1.shape[0]}x{lp_n}), "
+              "solve(..., polish=True): " + "; ".join(line27)
+              + f"; {time.perf_counter() - t27:.1f} s", flush=True)
+
+        # ---- 27b: the n=50 QP under profile='fast' on the megakernel
+        # (RSOC(52) + R+(50)), polished through the RSOC rotation
+        t27b = time.perf_counter()
+        qprob = tt.problems.qp(*[torch.from_numpy(v).to(dev)
+                                 for v in make_qp(qp_n)])
+        spans.clear()
+        runs27b = drive({f"QP n={qp_n} fast profile, polish": lambda: (
+            tt.solve(qprob.c, qprob.a, qprob.b, qprob.cone, p_fast,
+                     polish=True))}, kernels)
+        count(runs27b)
+        (rq, wall_q, cnt_q, _), = runs27b.values()
+        check(float(rq.cri_pri) <= 1e-9 and float(rq.cri_dual) <= 1e-9
+              and rq.x.dtype == f64
+              and (cnt_q["megakernel"] >= 1 or not on_card),
+              f"QP n={qp_n} polished: cri_pri {float(rq.cri_pri):.2e}, "
+              f"cri_dual {float(rq.cri_dual):.2e} (limit 1e-9), x "
+              f"{rq.x.dtype}, launches {cnt_q}")
+        print(f"phase 27b QP n={qp_n} (A {qprob.shape[0]}x{qprob.shape[1]}"
+              f" f32, RSOC({qp_n + 2}) + R+({qp_n})), profile='fast' on "
+              f"the megakernel ({rq.iters} iterations), polished: cri_pri "
+              f"{float(rq.cri_pri):.1e}, cri_dual {float(rq.cri_dual):.1e};"
+              f" {1e3 * wall_q:.1f} ms with the solve, of which A to the "
+              f"host {span_ms(spans, 'host_matrix'):.1f} ms, active-set "
+              f"passes {span_ms(spans, 'polish'):.1f} ms; launches "
+              f"{cnt_q}; {time.perf_counter() - t27b:.1f} s", flush=True)
+
+        # ---- 27c: phase 24's partitioning SDP (k = 48, dense, f32,
+        # eps_acc 1e-3, the reference profile) polished through the PSD
+        # active face: residuals no worse than before, accepted or not
+        # (at k = 48 no candidate beats the f32 point, in either
+        # package); then the same family on the grid ``grid27`` (k = 6),
+        # whose polish must be accepted and reach the child's f64
+        # objective within 1e-6
+        def face(grid, ref_key, must_accept):
+            t27c = time.perf_counter()
+            w24, c24, f_24, a24, b24 = make_partitioning(*grid)
+            l24 = w24.shape[0]
+            prob24 = tt.problems.sdp(*(
+                torch.tensor(v, dtype=f32, device=dev)
+                for v in (c24, f_24, a24, b24)))
+            p24 = tt.SolverParam(max_iter=200_000, eps_acc=1e-3)
+            r24 = prob24.solve_jit(p24)
+            check(r24.converged, f"partitioning SDP status {r24.status}")
+            spans.clear()
+            runs27c = drive({f"partitioning SDP k={l24}, polish": lambda: (
+                tt.solve(prob24.c, prob24.a, prob24.b, prob24.cone, p24,
+                         polish=True))}, kernels)
+            count(runs27c)
+            (rs, wall_s, cnt_s, _), = runs27c.values()
+            accepted = rs.x.dtype == f64
+            obj_s = float(np.trace(w24 @ packed_matrix(
+                rs.x.double().cpu().numpy(), l24)))
+            ref_s = refs()[ref_key]
+            crit = [(float(r.cri_pri), float(r.cri_dual))
+                    for r in (r24, rs)]
+            check(accepted or not must_accept, f"partitioning SDP k={l24}: "
+                  f"the polish declined (residuals {crit[0]})")
+            if accepted:
+                check(max(crit[1]) <= max(crit[0])
+                      and abs(obj_s - ref_s) <= 1e-6 * abs(ref_s),
+                      f"partitioning SDP k={l24} polished: residuals "
+                      f"{crit[1]} (before {crit[0]}), objective {obj_s} vs "
+                      f"the f64 reference {ref_s}")
+            else:
+                check(torch.equal(rs.x, r24.x) and crit[1] == crit[0],
+                      f"partitioning SDP k={l24}: the polish declined and "
+                      "the result is not the solve's own")
+            print(f"phase 27c partitioning SDP k={l24} (A {prob24.shape[0]}"
+                  f"x{prob24.shape[1]} f32, {rs.iters} iterations, cri_pri "
+                  f"/ cri_dual {crit[0][0]:.1e} / {crit[0][1]:.1e}): polish "
+                  + (f"accepted, residuals {crit[1][0]:.1e} / "
+                     f"{crit[1][1]:.1e}" if accepted else
+                     "not accepted (no candidate improves the worst KKT "
+                     "residual; the solve is returned unchanged)")
+                  + f"; objective {obj_s:.10f} vs the f64 reference "
+                  f"{ref_s:.10f} (rel {abs(obj_s - ref_s) / abs(ref_s):.1e}"
+                  f"{', limit 1e-6' if accepted else ''}); "
+                  f"{1e3 * wall_s:.1f} ms with the solve, of which A to "
+                  f"the host {span_ms(spans, 'host_matrix'):.1f} ms, "
+                  f"active-set passes {span_ms(spans, 'polish'):.1f} ms; "
+                  f"launches {cnt_s}; {time.perf_counter() - t27c:.1f} s",
+                  flush=True)
+
+        face(grid, "partitioning", False)
+        face(grid27, "partitioning27", True)
+    finally:
+        for name, fn in real.items():
+            setattr(tpolish, name, fn)
+
+    # ---- phase 28: differentiation on the card. 28a: DPi against the
+    # kernels
+    t28 = time.perf_counter()
+    cnt28a, parts28a = dpi_phase(tt, dev, kernels, dpi)
+    for k in kernels:
+        counts[k] += cnt28a[k]
+    print("phase 28a DPi in closed form against central differences (h = "
+          "1e-6) of the card's own projections, f64, dual cones (relative "
+          "error / adjoint error): " + "; ".join(parts28a)
+          + f"; {time.perf_counter() - t28:.1f} s", flush=True)
+
+    # ---- 28b: the n=1000 LP in f64: gradients of ||x||^2 by mode='vjp'
+    # against HiGHS's active-set closed form (1e-6: the gradient after
+    # LSQR's rtol 1e-12 is 8.8e-7 from it, the CPU and the card alike),
+    # then mode='jvp' (below)
+    t28b = time.perf_counter()
+    p9 = tt.SolverParam(method="direct", accel="halpern", check_period=20,
+                        eps_acc=1e-9, max_iter=400_000)
+    solver = tt.make_differentiable_solver(lp_cone, p9,
+                                           lsqr_iters=lsqr_iters)
+    cv, av, bv = (t.clone().requires_grad_(True) for t in t64)
+    for mod in kernels.values():
+        mod.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x28, y28 = solver(cv, av, bv)
+    torch.cuda.synchronize()
+    wall_f = time.perf_counter() - t0
+    for k in kernels:
+        counts[k] += kernels[k].launches
+        kernels[k].launches = 0
+    t0 = time.perf_counter()
+    gc, ga, gb = torch.autograd.grad((x28 * x28).sum(), (cv, av, bv))
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t0
+    steps = solver.stats["lsqr_steps"]
+    cnt_b = {k: mod.launches for k, mod in kernels.items()}
+    for k in kernels:
+        counts[k] += cnt_b[k]
+    check(cnt_b["dual_matvec"] == 2 * steps + 1 or not on_card,
+          f"backward: {cnt_b['dual_matvec']} dual_matvec launches for "
+          f"{steps} LSQR steps (want 2 a step and 1 before)")
+    gb_closed, n_b = active_closed_form(a64, b64, xh)
+    check(n_b == lp_n, f"HiGHS's vertex has {n_b} active rows, not "
+          f"{lp_n}: the closed form needs a nondegenerate vertex")
+    err_b = rel2(gb.cpu().numpy(), gb_closed)
+    check(all(bool(torch.isfinite(g).all()) for g in (gc, ga, gb)),
+          "non-finite gradient")
+    print(f"phase 28b LP n={lp_n} f64 (method='direct', Halpern, eps_acc "
+          f"1e-9): forward {wall_f:.2f} s; backward (mode='vjp', "
+          f"d||x||^2 / dc, dA, db) {wall_b:.3f} s, {steps} LSQR steps "
+          f"({1e3 * wall_b / max(steps, 1):.3f} ms a step), "
+          f"{cnt_b['dual_matvec'] / max(steps, 1):.3f} dual_matvec "
+          f"launches a step; d||x||^2/db {err_b:.1e} from HiGHS's "
+          f"active-set closed form ({n_b} active rows, limit 1e-6)",
+          flush=True)
+    check(err_b <= 1e-6, f"d||x||^2/db {err_b:.3e} from the active-set "
+          "closed form (limit 1e-6)")
+    wall_p, busy_p, nl_p, top_p = lsqr_profile(
+        diff, dproj, solver.cone, t64[0], tt.DenseOp(t64[1]), t64[2],
+        x28.detach(), y28.detach(), prof_steps)
+    print(f"phase 28b (continued) profile of {prof_steps} LSQR steps: "
+          f"{wall_p:.1f} us wall and {busy_p:.1f} us device-busy a step "
+          f"({100 * busy_p / wall_p:.1f}% busy), {nl_p:.1f} kernel launches "
+          "a step; top kernels (us a step) "
+          + ", ".join(f"{k} {t:.1f}" for k, t in top_p), flush=True)
+    # mode='jvp' along a random (dc, dA, db) on the same LP against the
+    # contraction of mode='vjp''s gradient with that direction. The gate,
+    # 1e-7, is set from the readings: the two LSQR solves (each some
+    # 90,000 steps at rtol 1e-12) agree to 2.7e-8 here, and a tangent
+    # that lacked its dA term reads the share of <grad_A, dA> in the
+    # contraction, which the phase prints and requires above 1e-5
+    rng = np.random.default_rng(281)
+    dirs = [torch.from_numpy(rng.normal(size=t.shape)).to(dev)
+            for t in t64]
+    solver_j = tt.make_differentiable_solver(lp_cone, p9, mode="jvp",
+                                             lsqr_iters=lsqr_iters)
+    for mod in kernels.values():
+        mod.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xj, dxj = torch.func.jvp(lambda *ts: solver_j(*ts)[0], tuple(t64),
+                             tuple(dirs))
+    torch.cuda.synchronize()
+    wall_j = time.perf_counter() - t0
+    for k in kernels:
+        counts[k] += kernels[k].launches
+    parts_j = [float((g * d).sum()) for g, d in zip((gc, ga, gb), dirs)]
+    lhs = sum(parts_j)
+    rhs = float(2.0 * (xj @ dxj))
+    err_j = abs(lhs - rhs) / abs(rhs)
+    err_no_da = abs(lhs - parts_j[1] - rhs) / abs(rhs)
+    check(err_j <= 1e-7 and err_no_da > 1e-5,
+          f"<grad, d> {lhs} vs the JVP's 2 x.dx {rhs} (rel {err_j:.3e}, "
+          f"limit 1e-7; without the dA term {err_no_da:.3e}, limit > 1e-5)")
+    print(f"phase 28b (continued) LP n={lp_n} f64: mode='jvp' along a "
+          f"random (dc, dA, db) against mode='vjp''s gradient: <grad, d> "
+          f"{lhs:.12e} vs 2 x.dx {rhs:.12e} (rel {err_j:.1e}, limit 1e-7; "
+          f"the contraction without its dA term {err_no_da:.1e}); "
+          f"{solver_j.stats['lsqr_steps']} LSQR steps; forward and "
+          f"tangent {wall_j:.2f} s; 28b {time.perf_counter() - t28b:.1f} s",
+          flush=True)
+
+    # ---- 28c: the JAX package's at-scale instance in f32: the box LP, n
+    # = 700, m = 1,400, eps_acc 1e-6 (tests/test_diff.py:135); d||x||^2/dh
+    # is 2 on each coordinate's active box row, 0 elsewhere
+    t28c = time.perf_counter()
+    rng = np.random.default_rng(2)
+    cb = rng.normal(size=box_n) + np.sign(rng.normal(size=box_n))
+    eye = np.eye(box_n)
+    gbox = np.concatenate([eye, -eye])
+    hbox = np.ones(2 * box_n)
+    box_cone = tt.ConeLayout([tt.rpos(2 * box_n)])
+    solver32 = tt.make_differentiable_solver(
+        box_cone, tt.SolverParam(max_iter=200_000, eps_acc=1e-6,
+                                 method="direct"), lsqr_iters=lsqr_iters)
+    cbt, gbt, hbt = (torch.tensor(v, dtype=f32, device=dev)
+                     for v in (cb, gbox, hbox))
+    hbt.requires_grad_(True)
+    for mod in kernels.values():
+        mod.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xb, _ = solver32(cbt, gbt, hbt)
+    (gh,) = torch.autograd.grad((xb * xb).sum(), hbt)
+    torch.cuda.synchronize()
+    wall_c = time.perf_counter() - t0
+    cnt_c = {k: mod.launches for k, mod in kernels.items()}
+    for k in kernels:
+        counts[k] += cnt_c[k]
+    closed = np.zeros(2 * box_n)
+    closed[np.where(cb > 0, box_n + np.arange(box_n), np.arange(box_n))] = 2.0
+    got = gh.double().cpu().numpy()
+    bad = np.abs(got - closed) > 5e-3 * np.abs(closed) + 1e-4
+    check(gh.dtype == f32 and not bad.any(),
+          f"box LP f32 gradient: {int(bad.sum())} entries off the closed "
+          f"form (rtol 5e-3, atol 1e-4), worst {np.abs(got - closed).max()}")
+    print(f"phase 28c box LP n={box_n} m={2 * box_n} f32 (eps_acc 1e-6, "
+          f"method='direct'): d||x||^2/dh within rtol 5e-3, atol 1e-4 of "
+          f"the closed form (max error {np.abs(got - closed).max():.1e}); "
+          f"solve and gradient {wall_c:.2f} s (the JAX test's ceiling 60 s)"
+          f", {solver32.stats['lsqr_steps']} LSQR steps, launches {cnt_c}; "
+          f"{time.perf_counter() - t28c:.1f} s", flush=True)
+
+    # ---- 28d: a structured A: phase 21's banded box LP (n = 4096) as a
+    # BlockedEllOp in f64. The tiles' cotangent (blocks + blocks_t^T) must
+    # be the dense closed form at the same solution and the same LSQR
+    # solve w: -(u_y w_x^T - w_y u_x^T), which with u_tau = 1 is u_y c_bar^T
+    # - b_bar u_x^T (w_tau cancels), from the same backward's c_bar and
+    # b_bar. (A separate dense solve is another LSQR run of about 30,000
+    # steps: its cotangent differed by 4.2e-5 of the largest entry at
+    # eps_acc 1e-9.) The gate is an identity of the cotangent's path, so
+    # the forward stops at eps_acc 1e-6
+    t28d = time.perf_counter()
+    c21, a21, b21 = make_banded_box_lp(ell_n)
+    ell = tt.BlockedEllOp.from_dense(a21.astype(np.float64),
+                                     block=(128, 128), device=dev)
+    del a21
+    solver21 = tt.make_differentiable_solver(
+        tt.ConeLayout([tt.rpos(3 * ell_n)]),
+        tt.SolverParam(method="direct", accel="halpern", check_period=20,
+                       eps_acc=1e-6, max_iter=400_000),
+        lsqr_iters=lsqr_iters)
+    c21t, b21t = (torch.from_numpy(v.astype(np.float64)).to(dev)
+                  .requires_grad_(True) for v in (c21, b21))
+    blk = ell.blocks.clone().requires_grad_(True)
+    blk_t = ell.blocks_t.clone().requires_grad_(True)
+    op21 = tt.BlockedEllOp(blk, ell.cols, blk_t, ell.cols_t, m=3 * ell_n,
+                           n=ell_n, bm=128, bn=128)
+    for mod in kernels.values():
+        mod.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x21, y21 = solver21(c21t, op21, b21t)
+    torch.cuda.synchronize()
+    wall_fwd = time.perf_counter() - t0
+    gc21, gb21, g_blk, g_blk_t = torch.autograd.grad(
+        (x21 * x21).sum(), (c21t, b21t, blk, blk_t))
+    torch.cuda.synchronize()
+    wall_bwd = time.perf_counter() - t0 - wall_fwd
+    for k in kernels:
+        counts[k] += kernels[k].launches
+    tiles_g, tiles = ell_tile_cotangent(tt, ell, g_blk, g_blk_t,
+                                        3 * ell_n, ell_n, 128)
+    dense_g = (torch.outer(y21.detach(), gc21)
+               - torch.outer(gb21, x21.detach()))
+    scale = float(dense_g.abs().max())
+    err_d = float((tiles_g - torch.where(tiles, dense_g, 0.0)).abs().max())
+    check(err_d <= 1e-8 * scale, f"ELL tile cotangent {err_d:.3e} from the "
+          f"dense closed form (max |cotangent| {scale:.3e}, limit 1e-8 of "
+          "it)")
+    print(f"phase 28d banded box LP n={ell_n} (A {3 * ell_n}x{ell_n} f64 as "
+          f"BlockedEllOp, K={ell.cols.shape[1]}; eps_acc 1e-6): the tiles' "
+          f"cotangent (blocks + blocks_t^T) {err_d / scale:.1e} of max "
+          f"|cotangent| from the dense closed form u_y c_bar^T - b_bar "
+          f"u_x^T at the same solution (limit 1e-8); forward "
+          f"{wall_fwd:.2f} s, backward {wall_bwd:.2f} s "
+          f"({solver21.stats['lsqr_steps']} LSQR steps); "
+          f"{time.perf_counter() - t28d:.1f} s", flush=True)
+    return counts
 
 
 def stop(proc):
@@ -3173,9 +3716,18 @@ def main():
         torus=REF_KW["torus"], traj=REF_KW["traj"])
     for k, v in counts26.items():
         main_counts[k] += v
+
+    # ---- phases 27-28: polish and differentiation through solves
+    t27 = time.perf_counter()
+    for k, v in polish_diff_phases(tt, dev, kernels, refs,
+                                   grid27=REF_KW["grid27"]).items():
+        main_counts[k] += v
+    # kernel J's launches over every path (phase 28a's DPi builds too)
+    jacobi_record["launches"] = main_counts["psd_jacobi"]
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s "
-          "(phases 23-26 from "
-          f"{t23 - t_start:.1f} s)", flush=True)
+          f"(phases 23-26 from {t23 - t_start:.1f} s, phases 27-28 from "
+          f"{t27 - t_start:.1f} s: {time.perf_counter() - t27:.1f} s)",
+          flush=True)
 
     primal = cp_main[False]
     record = {"kernels": [

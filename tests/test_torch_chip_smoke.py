@@ -17,20 +17,14 @@ import torch
 
 import chip_smoke as cs
 from totsu_tpu_torch.ops.kernels import cone_proj as cp
+# one thread per pool: this module's problems are small, and beside five
+# busy workers the pools oversubscribe the cores (the module ran ten
+# times slower)
+from torch_threads import one_thread  # noqa: F401 (an autouse fixture)
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "examples"))
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread for this module: its problems are small, and
-    the suite runs several workers on one machine, where torch's thread
-    pools would oversubscribe the cores (measured: the module ran ten
-    times slower beside five busy workers)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _spec(layout):
@@ -907,3 +901,36 @@ def test_sdp_phases_run_on_the_cpu_at_a_small_size(monkeypatch, capsys):
     out = capsys.readouterr().out
     for phase in (23, 24, 25, 26):
         assert f"\nphase {phase} " in out
+
+
+def test_polish_diff_phases_run_on_the_cpu_at_a_small_size(monkeypatch,
+                                                           capsys):
+    # phases 27-28's flow (every solve, gate and line) at small sizes on
+    # the CPU, with the card's timers stubbed; the references are the
+    # child's, at the same sizes
+    import totsu_tpu_torch as tt
+    from totsu_tpu_torch.ops.kernels import dual_matvec as dm
+    from totsu_tpu_torch.ops.kernels import megakernel as mk
+    from totsu_tpu_torch.ops.kernels import psd_jacobi as pj
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **kw: None)
+    monkeypatch.setattr(cs, "profile_loop",
+                        lambda fn, iters: (fn(), (1.0, 0.5, 9.0, []))[1])
+    refs = cs.cpu_references(lp_n=60, grid24=(3, 2), torus=(3, 2),
+                             traj=(6, 90.0), grid27=(2, 2))
+    torch.set_num_threads(1)     # cpu_references sets two
+    kernels = {"dual_matvec": dm, "megakernel": mk, "cone_proj": cp,
+               "psd_jacobi": pj}
+    dpi = (("R+", ("rpos", 40)), ("SOC", ("soc", 5, 8)),
+           ("RSOC", ("rsoc", 6, 4)), ("exp", ("expc", 200)),
+           ("pow(1/2)", ("powc", 0.5, 200)),
+           ("PSD (6, 2) jacobi", ("psd", 6, 2)))
+    counts = cs.polish_diff_phases(
+        tt, torch.device("cpu"), kernels, lambda: refs, lp_n=60, qp_n=10,
+        grid=(3, 2), grid27=(2, 2), box_n=40, ell_n=256, dpi=dpi,
+        prof_steps=5)
+    assert counts == {k: 0 for k in kernels}
+    out = capsys.readouterr().out
+    for phase in ("27a", "27b", "27c", "28a", "28b", "28c", "28d"):
+        assert f"\nphase {phase} " in out
+

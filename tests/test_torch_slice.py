@@ -132,7 +132,8 @@ def test_port_never_imports_jax():
             "totsu_tpu_torch.ops.jacobi, "
             "totsu_tpu_torch.ops.kernels.psd_jacobi, "
             "totsu_tpu_torch.utils.operator_check, "
-            "totsu_tpu_torch.utils.contour; "
+            "totsu_tpu_torch.utils.contour, totsu_tpu_torch.diff, "
+            "totsu_tpu_torch.solver.dproj, totsu_tpu_torch.solver.polish; "
             "print(sorted(m for m in sys.modules if m in ('jax', "
             "'totsu_tpu') or m.startswith(('jax.', 'jaxlib', "
             "'totsu_tpu.'))))")

@@ -152,9 +152,8 @@ def test_dual_matvec_counts_only_launches():
 
 @pytest.mark.parametrize("kw,solve_kw", [
     (dict(profile="fast"), dict(row_sharding=object())),
-    ({}, dict(polish=True)),
     ({}, dict(row_sharding=object())),
-], ids=["fast_row_sharding", "polish", "row_sharding"])
+], ids=["fast_row_sharding", "row_sharding"])
 def test_unported_features_raise(kw, solve_kw):
     c, a, b, m = small_lp(seed=5)
     ct, at, bt = interop.problem_from_numpy(c, a, b, device="cpu")

@@ -32,9 +32,14 @@ CG for any other operator), and ``profile='fast'`` routes a problem as
 the JAX package does. Every engine checkpoints
 (``return_state``, a :class:`ResumeState`) and resumes exactly
 (``resume_state``); ``solve(chunk_iters=N)`` chains such calls, and
-``log_period`` prints the host loops' progress.
+``log_period`` prints the host loops' progress. ``solve(...,
+polish=True)`` refines a converged solution on the host in f64
+(``solver/polish.py``), and :func:`make_differentiable_solver`
+(``diff.py``) differentiates through a solve in reverse and forward mode,
+with the cone projections' derivatives in closed form
+(``solver/dproj.py``).
 
-Not ported yet (ROADMAP.md): polish, diff, batching and distribution.
+Not ported yet (ROADMAP.md): batching and distribution.
 """
 
 from totsu_tpu_torch.solver.params import SolverParam, SolverStatus, SolverError
@@ -51,6 +56,7 @@ from totsu_tpu_torch.solver.operator import (
 from totsu_tpu_torch.problems import (
     ConicProblem, ProbLP, ProbQP, ProbQCQP, ProbSOCP, ProbSDP, MatBuild,
 )
+from totsu_tpu_torch.diff import make_differentiable_solver
 
 __version__ = "0.1.0"
 
@@ -62,5 +68,5 @@ __all__ = [
     "VStackOp", "HStackOp",
     "BlockOp", "ScaledOp", "as_linop",
     "ConicProblem", "ProbLP", "ProbQP", "ProbQCQP", "ProbSOCP", "ProbSDP",
-    "MatBuild",
+    "MatBuild", "make_differentiable_solver",
 ]

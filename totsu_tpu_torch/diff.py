@@ -1,0 +1,431 @@
+"""Differentiating through conic program solutions.
+
+Port of ``totsu_tpu.diff``: the conic implicit-function approach of
+Agrawal, Barratt, Boyd, Busseti and Moursi ("Differentiating through a
+cone program", 2019, the engine behind diffcp / cvxpylayers). At a
+converged solution the homogeneous residual map
+
+    N(z) = Q Pi(z) - (Pi(z) - z) = 0,
+    Q = [[0, A', c], [-A, 0, b], [-c', -b', 0]],
+    Pi = projection onto C = R^n x K* x R+
+
+is differentiable wherever the cone projection is, and
+
+    M dz = -dQ u,     M = (Q - I) DPi(z) + I,   u = Pi(z)
+
+gives the solution's sensitivities. M is never materialized: both rules
+solve with LSQR (min-norm least squares; M is singular, z spans its
+null space), whose every step applies M and M^T once each, so one Q
+product each: on a dense A on the card that is one launch of the
+``dual_matvec`` kernel per product.
+
+What differs from the JAX package, on purpose:
+
+* DPi comes in closed form from ``solver/dproj.py``, built once per
+  backward or forward call, not from ``jax.jvp`` / ``jax.vjp`` through
+  the projections' iterations: on the card the exp/pow projection is
+  kernel B and the 'jacobi' PSD projection kernel J, which have no
+  derivative;
+* LSQR is a host loop with one host read per step (like the direct
+  engine's CG), the JAX ``lax.while_loop``'s steps and stopping rule:
+  the read brings the step's two norms, and the plane rotation and the
+  exit test run in host scalars of the vectors' precision, so a step
+  launches about 30 kernels on the card, not 70;
+* the rule is a ``torch.autograd.Function``: ``mode='vjp'`` saves for
+  ``backward`` (``torch.autograd.grad``, ``.backward()``), ``mode='jvp'``
+  for ``jvp`` (``torch.func.jvp``, ``torch.autograd.forward_ad``); each
+  mode defines one direction, as in the JAX package;
+* the A cotangent lives in the operator's own parameters: the solver
+  hands the floating tensors of ``a`` (a dense tensor, or a ``LinOp``'s
+  fields: ``BlockedEllOp``'s ``blocks`` and ``blocks_t``, ``CustomOp``'s
+  ``params``, the children of the stacks) to the Function as inputs;
+  integer leaves (tile-column indices) and sparse tensors get no
+  gradient. A dense A takes the closed form -(u_y w_x' - w_y u_x'); any
+  other operator the gradient of w_x . A'u_y - w_y . A u_x by autograd
+  through its ``matvec`` / ``rmatvec``, which are plain PyTorch on every
+  operator. Forward-mode tangents of a structured A come the same way:
+  ``torch.func.jvp(lambda blk, blk_t: solver(c, BlockedEllOp(...,
+  blk, ..., blk_t, ...), b), ...)``.
+
+The solve must converge and the solution sit at a differentiable
+(strictly complementary) point, else the gradients are subgradient-like.
+No reference counterpart.
+"""
+
+import contextlib
+import dataclasses
+from typing import Any, Callable, List, Tuple
+
+import numpy as np
+import torch
+from torch.autograd.function import once_differentiable
+
+from totsu_tpu_torch.solver.cone import ConeLayout, resolve_auto_methods
+from totsu_tpu_torch.solver.conic import solve_jit
+from totsu_tpu_torch.solver.dproj import dproj_at
+from totsu_tpu_torch.solver.operator import (DenseOp, LinOp,
+                                            full_f32_matmul, pin_dtype)
+from totsu_tpu_torch.solver.params import SolverParam
+
+
+def _rtol(lsqr_rtol, dtype: torch.dtype) -> float:
+    """The LSQR stopping tolerance for the solve's dtype: the default
+    (None) is 1e-12 in f64 and 30 eps otherwise (1e-12 is out of reach
+    in f32 and would run every gradient to the iteration cap)."""
+    if lsqr_rtol is not None:
+        return float(lsqr_rtol)
+    return 1e-12 if dtype == torch.float64 else \
+        30.0 * float(torch.finfo(dtype).eps)
+
+
+def _q_apply(c, a_op: LinOp, b, u, cb=None):
+    """Q u through the operator interface: one ``dual_matvec`` (the
+    kernel for a dense A on the card) and four small operations. ``cb``
+    is (c, b) concatenated, which a loop passes in once."""
+    n = c.shape[0]
+    cb = torch.cat([c, b]) if cb is None else cb
+    a_ux, at_uy = a_op.dual_matvec(u[:n], u[n:-1])
+    # (A'u_y + c u_t, -A u_x + b u_t, -c.u_x - b.u_y)
+    out = torch.cat([at_uy, a_ux, (cb @ u[:-1]).reshape(1)])
+    out[n:].neg_()
+    out[:-1].addcmul_(cb, u[-1:])
+    return out
+
+
+def _lsqr(matvec, rmatvec, rhs, iters: int, rtol: float):
+    """Paige-Saunders LSQR: min-norm least-squares solve of ``A w ~ rhs``
+    with ``matvec`` (A v) and ``rmatvec`` (A' u); a singular A is fine.
+    The JAX package's steps and stopping rule: stop when ||A' r|| (LSQR's
+    phibar alpha |cs|) falls to rtol ||A' rhs|| or after ``iters`` steps.
+    Returns (w, steps). Each step ends with one host read, of its two
+    norms; the scalar recurrence then runs on the host in the vectors'
+    precision, so the step's vector updates take their factors as
+    arguments and launch nothing for them."""
+    real = np.float64 if rhs.dtype == torch.float64 else np.float32
+    eps = real(torch.finfo(rhs.dtype).tiny)
+    one = real(1.0)
+    nrm = torch.linalg.vector_norm
+
+    def norms(*ts):
+        return [real(t) for t in torch.stack(ts).tolist()]
+
+    beta1_t = nrm(rhs)
+    u = rhs / torch.clamp(beta1_t, min=float(eps))
+    v = rmatvec(u)
+    alpha_t = nrm(v)
+    v = v / torch.clamp(alpha_t, min=float(eps))
+    beta1, alpha = norms(beta1_t, alpha_t)
+    wv = v
+    x = torch.zeros_like(v)
+    arnorm0 = max(alpha * beta1, eps)
+    rhobar, alphak, phibar, cs = alpha, alpha, beta1, one
+    k = 0
+    while k < iters and phibar * alphak * abs(cs) > real(rtol) * arnorm0:
+        u = torch.sub(matvec(v), u, alpha=float(alphak))
+        beta_t = nrm(u)
+        u = u / torch.clamp(beta_t, min=float(eps))
+        v = torch.addcmul(rmatvec(u), v, beta_t, value=-1)
+        alpha_t = nrm(v)
+        v = v / torch.clamp(alpha_t, min=float(eps))
+        beta, alphak = norms(beta_t, alpha_t)
+        rho = max(np.sqrt(rhobar * rhobar + beta * beta), eps)
+        cs = rhobar / rho
+        sn = beta / rho
+        theta = sn * alphak
+        rhobar = -cs * alphak
+        phi = cs * phibar
+        phibar = sn * phibar
+        x = torch.add(x, wv, alpha=float(phi / rho))
+        wv = torch.add(v, wv, alpha=-float(theta / rho))
+        k += 1
+    return x, k
+
+
+def _m_ops(dp, c, a_op: LinOp, b):
+    """Appliers of M = (Q - I) DPi(z) + I and M' = DPi(z)' (Q' - I) + I
+    (Q is skew-symmetric: Q' = -Q), from ``dp``, DPi's data at z."""
+    cb = torch.cat([c, b])
+
+    def m_apply(v):
+        d = dp.apply(v)
+        return _q_apply(c, a_op, b, d, cb).sub_(d).add_(v)
+
+    def mt_apply(w):
+        return dp.apply_t(_q_apply(c, a_op, b, w, cb).add_(w).neg_()).add_(w)
+
+    return m_apply, mt_apply
+
+
+def _embed_point(x, y, s):
+    """The embedding point at the solution: z = (x, y - s, 1), whose Pi is
+    u = (x, y, 1) (Moreau: y and s are complementary)."""
+    return torch.cat([x, y - s, torch.ones(1, dtype=x.dtype,
+                                           device=x.device)])
+
+
+def _flatten(obj) -> Tuple[List[torch.Tensor], Callable]:
+    """The floating (strided) tensors inside ``obj`` (a tensor, a LinOp
+    dataclass, tuples, lists and dicts of them) and a function that
+    rebuilds ``obj`` with other tensors in their places."""
+    if isinstance(obj, torch.Tensor):
+        if obj.is_floating_point() and obj.layout == torch.strided:
+            return [obj], lambda ls: ls[0]
+        return [], lambda ls: obj
+    if isinstance(obj, LinOp) and dataclasses.is_dataclass(obj):
+        names = [f.name for f in dataclasses.fields(obj) if f.init]
+        inner, rebuild = _flatten([getattr(obj, k) for k in names])
+        if not inner:
+            return [], lambda ls: obj
+        return inner, lambda ls: dataclasses.replace(
+            obj, **dict(zip(names, rebuild(ls))))
+    if isinstance(obj, dict):
+        keys = list(obj)
+        inner, rebuild = _flatten([obj[k] for k in keys])
+        return inner, lambda ls: dict(zip(keys, rebuild(ls)))
+    if isinstance(obj, (tuple, list)):
+        parts = [_flatten(item) for item in obj]
+        sizes = [len(p[0]) for p in parts]
+        leaves = [t for p in parts for t in p[0]]
+
+        def rebuild(ls):
+            out, off = [], 0
+            for (_, rb), k in zip(parts, sizes):
+                out.append(rb(ls[off:off + k]))
+                off += k
+            return type(obj)(out)
+
+        return leaves, rebuild
+    return [], lambda ls: obj
+
+
+@dataclasses.dataclass
+class _Spec:
+    """What the Function needs besides its tensor inputs: the layout, the
+    solve's parameters, the mode, LSQR's settings, how to rebuild A from
+    its leaves and whether A is dense."""
+    cone: ConeLayout
+    param: SolverParam
+    mode: str
+    lsqr_iters: int
+    lsqr_rtol: Any
+    rebuild: Callable
+    dense: bool
+    stats: dict
+
+    def operator(self, leaves):
+        return self.rebuild(list(leaves))
+
+    def _setup(self, c, b, x, y, leaves):
+        """DPi's data at the embedding point of (x, y) and M's appliers,
+        on the problem in the iterate dtype."""
+        dt = x.dtype
+        a_op = pin_dtype(_as_op(self.operator(leaves)), dt)
+        c, b = c.to(dt), b.to(dt)
+        z = _embed_point(x, y, b - a_op.matvec(x))
+        dp = dproj_at(self.cone, c.shape[0], b.shape[0], z)
+        return (dp, *_m_ops(dp, c, a_op, b))
+
+    def _lsqr(self, matvec, rmatvec, rhs):
+        w, steps = _lsqr(matvec, rmatvec, rhs, self.lsqr_iters,
+                         _rtol(self.lsqr_rtol, rhs.dtype))
+        self.stats["lsqr_steps"] = steps
+        return w
+
+    def vjp(self, c, b, x, y, leaves, x_bar, y_bar):
+        """(c_bar, b_bar, leaf cotangents) for the cotangents of x, y."""
+        dp, m_apply, mt_apply = self._setup(c, b, x, y, leaves)
+        n, m = c.shape[0], b.shape[0]
+        u_x, u_y, u_t = dp.u[:n], dp.u[n:n + m], dp.u[-1]
+        x_bar, y_bar = x_bar.to(x.dtype), y_bar.to(x.dtype)
+        u_bar = torch.cat([x_bar, y_bar,
+                           (-(u_x @ x_bar) - (u_y @ y_bar)).reshape(1)])
+        # solve M' w = DPi' u_bar (min-norm least squares: M z = 0)
+        w = self._lsqr(mt_apply, m_apply, dp.apply_t(u_bar))
+        w_x, w_y, w_t = w[:n], w[n:n + m], w[-1]
+        c_bar = -(w_x * u_t - w_t * u_x)
+        b_bar = -(w_y * u_t - w_t * u_y)
+        return (c_bar.to(c.dtype), b_bar.to(b.dtype),
+                self._a_cotangent(leaves, u_x, u_y, w_x, w_y))
+
+    def _a_cotangent(self, leaves, u_x, u_y, w_x, w_y):
+        """-grad over A's leaves of w_x . A'u_y - w_y . A u_x."""
+        if self.dense:
+            (a,) = leaves
+            return [-(torch.outer(u_y, w_x) - torch.outer(w_y, u_x)).to(
+                a.dtype)]
+        with torch.enable_grad():
+            ls = [t.detach().requires_grad_(True) for t in leaves]
+            op = self.operator(ls)
+            dt = op.dtype or u_x.dtype
+            val = w_x.to(dt) @ op.rmatvec(u_y.to(dt)) \
+                - w_y.to(dt) @ op.matvec(u_x.to(dt))
+            grads = torch.autograd.grad(val, ls, allow_unused=True)
+        return [torch.zeros_like(t) if g is None else -g
+                for t, g in zip(leaves, grads)]
+
+    def jvp(self, c, b, x, y, leaves, dc, db, dleaves):
+        """(dx, dy) for the tangents of c, b and A's leaves."""
+        dp, m_apply, mt_apply = self._setup(c, b, x, y, leaves)
+        n, m = c.shape[0], b.shape[0]
+        u_x, u_y, u_t = dp.u[:n], dp.u[n:n + m], dp.u[-1]
+        dt = x.dtype
+        dc = torch.zeros_like(u_x) if dc is None else dc.to(dt)
+        db = torch.zeros_like(u_y) if db is None else db.to(dt)
+        dat_uy = torch.zeros_like(u_x)
+        da_ux = torch.zeros_like(u_y)
+        if any(t is not None for t in dleaves):
+            tangents = tuple(torch.zeros_like(t) if d is None else d
+                             for t, d in zip(leaves, dleaves))
+            if self.dense:
+                (da,) = tangents
+                dat_uy, da_ux = u_y @ da.to(dt), da.to(dt) @ u_x
+            else:
+                def h_fn(*ls):
+                    op = _as_op(self.operator(ls))
+                    return (op.rmatvec(u_y.to(op.dtype or dt)),
+                            op.matvec(u_x.to(op.dtype or dt)))
+
+                _, (dat_uy, da_ux) = torch.func.jvp(h_fn, tuple(leaves),
+                                                    tangents)
+                dat_uy, da_ux = dat_uy.to(dt), da_ux.to(dt)
+        g = torch.cat([dat_uy + dc * u_t, -da_ux + db * u_t,
+                       (-(dc @ u_x) - (db @ u_y)).reshape(1)])
+        # M dz = -g (min-norm least squares)
+        du = dp.apply(self._lsqr(m_apply, mt_apply, -g))
+        # x = u_x / u_tau at tau = 1: dx = du_x - x du_tau
+        return du[:n] - x * du[-1], du[n:n + m] - y * du[-1]
+
+
+def _as_op(a) -> LinOp:
+    return a if isinstance(a, LinOp) else DenseOp(a)
+
+
+@contextlib.contextmanager
+def _outside_torch_func():
+    """A context in which the rule computes on plain tensors; it yields
+    ``plain``, which strips torch.func's wrappers from a tensor (None
+    passes). Under ``torch.func.jvp`` (or ``torch.func.grad``) the rule
+    sees its saved tensors and tangents wrapped at the transform's level,
+    and every operation it ran would wrap its result too; a wrapper has
+    no storage for a kernel to read. The rule's arithmetic is
+    once-differentiable, so it runs on the plain tensors with the
+    transforms' interpreter stack set aside, and returns plain results,
+    which the transform takes as the tangents (or cotangents) of its
+    level.
+
+    This is the one place that touches torch.func's private internals
+    (``torch._C._functorch.get_unwrapped``, ``is_functorch_wrapped_tensor``
+    and ``torch._functorch.pyfunctorch.temporarily_clear_interpreter_stack``),
+    checked on torch 2.11 (CUDA 12.8) and 2.13 (CPU); a torch that moves
+    them fails ``test_rules_see_plain_tensors``."""
+    from torch._C._functorch import (get_unwrapped,
+                                     is_functorch_wrapped_tensor)
+    from torch._functorch.pyfunctorch import \
+        temporarily_clear_interpreter_stack
+
+    def plain(t):
+        while t is not None and is_functorch_wrapped_tensor(t):
+            t = get_unwrapped(t)
+        return t
+
+    with temporarily_clear_interpreter_stack(), full_f32_matmul():
+        yield plain
+
+
+class _DiffSolve(torch.autograd.Function):
+    """(c, b, A's leaves) -> (x, y) of one solve, with the implicit rule
+    of the spec's mode: ``backward`` for 'vjp', ``jvp`` for 'jvp'."""
+
+    @staticmethod
+    def forward(spec, c, b, *leaves):
+        res = solve_jit(c, spec.operator(leaves), b, spec.cone, spec.param)
+        return res.x, res.y
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        spec, c, b, *leaves = inputs
+        ctx.spec = spec
+        saved = (c, b, *output, *leaves)
+        if spec.mode == "vjp":
+            ctx.save_for_backward(*saved)
+        else:
+            ctx.save_for_forward(*saved)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, x_bar, y_bar):
+        spec = ctx.spec
+        if spec.mode != "vjp":
+            raise RuntimeError("make_differentiable_solver(mode='jvp') "
+                               "defines forward mode only; build the "
+                               "solver with mode='vjp' for gradients")
+        with _outside_torch_func() as plain:
+            c, b, x, y, *leaves = (plain(t) for t in ctx.saved_tensors)
+            c_bar, b_bar, a_bars = spec.vjp(c, b, x, y, leaves,
+                                            plain(x_bar), plain(y_bar))
+        return (None, c_bar, b_bar, *a_bars)
+
+    @staticmethod
+    def jvp(ctx, _spec_t, dc, db, *dleaves):
+        spec = ctx.spec
+        if spec.mode != "jvp":
+            raise RuntimeError("make_differentiable_solver(mode='vjp') "
+                               "defines reverse mode only; build the "
+                               "solver with mode='jvp' for forward-mode "
+                               "tangents")
+        with _outside_torch_func() as plain:
+            c, b, x, y, *leaves = (plain(t) for t in ctx.saved_tensors)
+            return spec.jvp(c, b, x, y, leaves, plain(dc), plain(db),
+                            [plain(t) for t in dleaves])
+
+
+class DifferentiableSolver:
+    """``solver(c, a, b) -> (x, y)``, differentiable through the
+    optimality conditions (see :func:`make_differentiable_solver`).
+    ``stats['lsqr_steps']`` holds the LSQR steps of the last backward or
+    forward-mode call."""
+
+    def __init__(self, cone, param, mode, lsqr_iters, lsqr_rtol):
+        self.cone = resolve_auto_methods(cone, param)
+        self.param = param
+        self.mode = mode
+        self.lsqr_iters = int(lsqr_iters)
+        self.lsqr_rtol = lsqr_rtol
+        self.stats = {}
+
+    def __call__(self, c, a, b):
+        leaves, rebuild = _flatten(a)
+        dense = isinstance(a, torch.Tensor) or isinstance(a, DenseOp)
+        if isinstance(a, DenseOp):
+            # the dense A's one leaf is the matrix; the closed form
+            # applies to it
+            leaves, rebuild = [a.a], (lambda ls: DenseOp(ls[0]))
+        spec = _Spec(self.cone, self.param, self.mode, self.lsqr_iters,
+                     self.lsqr_rtol, rebuild, dense, self.stats)
+        return _DiffSolve.apply(spec, c, b, *leaves)
+
+
+def make_differentiable_solver(cone: ConeLayout,
+                               param: SolverParam = SolverParam(),
+                               mode: str = "vjp",
+                               lsqr_iters: int = 1000,
+                               lsqr_rtol=None) -> DifferentiableSolver:
+    """Return ``fn(c, a, b) -> (x, y)`` differentiable through the
+    optimality conditions. ``c`` and ``b`` are tensors; ``a`` is a dense
+    (m, n) tensor or any LinOp (blocked-ELL, stacked, diagonal,
+    matrix-free), whose cotangent or tangent lives in its own floating
+    tensors (a ``BlockedEllOp``'s ``blocks`` and ``blocks_t`` each take
+    their pass's half: combine as ``blocks + transpose(blocks_t)`` when
+    updating one underlying A; a ``CustomOp``'s ``params``). The solve
+    runs where the data lies (``solve_jit``; it never raises: check
+    convergence yourself when it matters), and so does the rule.
+
+    ``mode='vjp'`` defines the reverse-mode rule (``torch.autograd.grad``
+    through losses of x, y); ``mode='jvp'`` the forward-mode rule
+    (``torch.func.jvp``, ``torch.autograd.forward_ad``). Both solve the
+    singular system with matrix-free LSQR of at most ``lsqr_iters``
+    steps; ``lsqr_rtol=None`` resolves per dtype (1e-12 in f64, 30 eps
+    in f32; :func:`_rtol`)."""
+    if mode not in ("vjp", "jvp"):
+        raise ValueError(f"unknown mode {mode!r} (want 'vjp' or 'jvp')")
+    return DifferentiableSolver(cone, param, mode, lsqr_iters, lsqr_rtol)

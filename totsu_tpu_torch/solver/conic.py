@@ -931,9 +931,15 @@ def solve(
     On a structured operator under ``profile='fast'`` with ``equil_iters``
     unset, a probe of the data's column spread may switch on Ruiz first
     (:func:`_maybe_auto_equil`); an indirect-engine solve whose CG hit its
-    cap warns (:func:`_warn_cg_truncation`)."""
-    if polish:
-        raise _not_ported("polish=True", "13")
+    cap warns (:func:`_warn_cg_truncation`).
+
+    ``polish=True`` refines the converged solution on the host in f64
+    (``solver/polish.py``: zero/rpos/SOC/RSOC/PSD cones, so the qp() and
+    qcqp() epigraph reductions polish too; exp/pow/custom layouts warn and
+    return unpolished; a structured operator is densified under a size
+    guard and an oversize one raises) and returns the refined x and y with
+    every criterion recomputed at the polished point
+    (:func:`_apply_polish`), on the chunked path too."""
     a_op = as_linop(a, device)
     param = _maybe_auto_equil(param, a_op, row_sharding)
     if chunk_iters is not None:
@@ -945,7 +951,52 @@ def solve(
     _warn_cg_truncation(result)
     if result.status != SolverStatus.CONVERGED:
         raise SolverError(result.status)
+    if polish:
+        result = _apply_polish(result, c, a_op, b, cone, param)
     return result
+
+
+def _apply_polish(result: SolveResult, c, a_op: LinOp, b,
+                  cone: ConeLayout, param: SolverParam) -> SolveResult:
+    """Host-side f64 active-set refinement of a converged result, with
+    every criterion, the certificate fields included, recomputed at the
+    polished point (the in-loop check's formulas at the tau = 1 solution,
+    where s = b - A x, so p_inf = b exactly).
+
+    Two choices differ from a literal copy of the JAX package, which
+    computes A^T y with ``as_linop(a).rmatvec`` on the device and hands
+    back arrays in its x64 dtype:
+
+    * A^T y is computed on the host from the f64 dense A that the polish
+      built (:func:`polish.host_matrix`): an f32 A against the f64
+      polished y would raise in torch, where jnp widens;
+    * x, y and the criteria come back as f64 tensors on A's device,
+      whatever the solve's dtype: rounding them to f32 would undo the
+      polish (its residuals reach about 1e-9 and below)."""
+    from totsu_tpu_torch.solver import polish as polish_mod
+    a_np = polish_mod.host_matrix(a_op)
+    pr = polish_mod.polish(result, c, a_np, b, cone)
+    if not pr.polished:
+        return result
+    cn, bn = polish_mod._host(c), polish_mod._host(b)
+    gx, gy = float(cn @ pr.x), float(bn @ pr.y)
+    aty = a_np.T @ pr.y
+    nb_, nc_ = np.linalg.norm(bn), np.linalg.norm(cn)
+    m_cx, m_by = -gx, -gy
+    cri_unbdd = (float(nb_ * nc_ / m_cx)
+                 if m_cx > param.eps_zero else np.inf)
+    cri_infeas = (float(np.linalg.norm(aty) * nb_ / m_by)
+                  if m_by > param.eps_zero else np.inf)
+
+    def dev(v):
+        return torch.tensor(v, dtype=torch.float64, device=a_op.device)
+
+    return dataclasses.replace(
+        result, x=dev(pr.x), y=dev(pr.y),
+        cri_pri=dev(pr.pri_res / (1.0 + nb_)),
+        cri_dual=dev(pr.dual_res / (1.0 + nc_)),
+        cri_gap=dev(abs(gx + gy) / (1.0 + abs(gx) + abs(gy))),
+        cri_unbdd=dev(cri_unbdd), cri_infeas=dev(cri_infeas))
 
 
 #: Auto-equilibration threshold on ``scaling_spread`` (the column 2-norm
