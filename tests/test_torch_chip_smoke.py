@@ -934,3 +934,98 @@ def test_polish_diff_phases_run_on_the_cpu_at_a_small_size(monkeypatch,
     for phase in ("27a", "27b", "27c", "28a", "28b", "28c", "28d"):
         assert f"\nphase {phase} " in out
 
+
+
+def test_make_fleet_is_the_benchmark_s():
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..",
+                                    "benchmarks"))
+    import benchmark_admm
+    c, a, b = cs.make_fleet(3, 5, 7, seed=2)
+    cj, aj, bj, lay = benchmark_admm.make_fleet(3, 5, 7, seed=2)
+    for got, want in ((c, cj), (a, aj), (b, bj)):
+        np.testing.assert_array_equal(got, want)
+    assert [(f.kind, f.dim) for f in lay.factors] == [("rpos", 7)]
+
+
+def test_examples_torch_builders_are_the_examples():
+    # the port's batch examples build what the JAX package's examples do
+    import jax.numpy as jnp
+    import mpc_qp
+    import nearestcorr_batch_sdp
+    import trajplan_qcqp
+    from examples_torch import mpc_qp as tmpc
+    from examples_torch import nearestcorr_batch_sdp as tnc
+    from examples_torch import trajplan_qcqp as ttraj
+    state, target = np.array([0.3, -1.0, 0.2, 0.1]), np.array([1.0, 2.0])
+    for got, want in zip(tmpc.build_tick_qp(state, target, 5, 0.25, 1e-2,
+                                            4.0),
+                         mpc_qp.build_tick_qp(state, target, 5, 0.25, 1e-2,
+                                              4.0)):
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(tnc.make_noisy_covs(3, 5),
+                                  nearestcorr_batch_sdp.make_noisy_covs(3, 5))
+    a, c, lay, pos, sn = tnc.build(5, torch.float64, "cpu")
+    aj, cj, layj, posj, snj = nearestcorr_batch_sdp.build(5, jnp.float64)
+    np.testing.assert_array_equal(a.numpy(), np.asarray(aj))
+    np.testing.assert_array_equal(c.numpy(), np.asarray(cj))
+    np.testing.assert_array_equal(pos, posj)
+    assert _spec(lay) == _spec(layj) and sn == snj
+    s = tnc.make_noisy_covs(1, 5)[0]
+    np.testing.assert_allclose(
+        tnc.lane_b(s, 5, sn, torch.float64, "cpu").numpy(),
+        cs.nearestcorr_b(s), rtol=1e-15)
+    for got, want in zip(ttraj.build(9, 120.0), trajplan_qcqp.build(9, 120.0)):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_batch_helpers():
+    import totsu_tpu_torch as tt
+    assert cs.halpern_updates(60, 20) == 63
+    res = tt.SolveResult(x=torch.zeros(3, 2), y=torch.zeros(3, 1),
+                         status=torch.tensor([1, 2, 1]),
+                         iters=torch.tensor([40, 100, 60]),
+                         cri_pri=None, cri_dual=None, cri_gap=None,
+                         cri_unbdd=None, cri_infeas=None)
+    assert cs.lanes_summary(res) == ("CONVERGED x2 EXCESS_ITER x1", "60/100")
+    assert cs.same_batch(res, res)
+    other = tt.SolveResult(**{**res.__dict__, "x": torch.ones(3, 2)})
+    assert not cs.same_batch(res, other)
+
+
+def test_batch_phases_run_on_the_cpu_at_a_small_size(monkeypatch, capsys):
+    # phases 29-33's flow (every solve, gate and line) at small sizes on
+    # the CPU, with the card's timers stubbed and kernels B and J counted
+    # where their plain versions stand in for them
+    import totsu_tpu_torch as tt
+    from totsu_tpu_torch.ops.kernels import dual_matvec as dm
+    from totsu_tpu_torch.ops.kernels import megakernel as mk
+    from totsu_tpu_torch.ops.kernels import psd_jacobi as pj
+
+    real_cp, real_pj = cp.cone_proj, pj.proj_psd_jacobi
+
+    def cp_launch(*args, **kw):
+        cp.launches += 1
+        return real_cp(*args, **kw)
+
+    def pj_launch(*args, **kw):
+        pj.launches += 1
+        return real_pj(*args, **kw)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **kw: None)
+    monkeypatch.setattr(cs, "profile_loop",
+                        lambda fn, iters: (fn(), (1.0, 0.5, 9.0, []))[1])
+    monkeypatch.setattr(cp, "cone_proj", cp_launch)
+    monkeypatch.setattr(pj, "proj_psd_jacobi", pj_launch)
+    kernels = {"dual_matvec": dm, "megakernel": mk, "cone_proj": cp,
+               "psd_jacobi": pj}
+    counts = cs.batch_phases(
+        tt, torch.device("cpu"), kernels, n29=8, lanes29=4, lanes29b=3,
+        iters29b=40, lanes29c=4, growth=(4, 12), cov31=(6, 3), singles31=2,
+        mpc=dict(n_vehicles=3, h_horizon=4, ticks=8), burst=8,
+        fleet=(2, 4, 16), admm_outer=40,
+        sweep=dict(t_cap=10, caps=(200.0, 300.0)))
+    assert counts["cone_proj"] > 0 and counts["psd_jacobi"] > 0
+    assert counts["dual_matvec"] == counts["megakernel"] == 0
+    out = capsys.readouterr().out
+    for phase in ("29a", "29b", "29c", "30", "31", "32", "33"):
+        assert f"\nphase {phase} " in out

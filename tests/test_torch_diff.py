@@ -14,8 +14,9 @@ test is f32): each instance is made once with numpy and goes through
 
 The two ``BlockedEllOp`` twins are in ``test_torch_diff_ell.py`` (the
 port's indirect engine takes about 17 s on one CPU core for one of
-them). ``test_vmapped_batch_gradients`` (``test_diff.py:115``) has no
-twin yet: it waits for batched solves (ROADMAP item 14).
+them). ``test_vmapped_batch_gradients`` (``test_diff.py:115``) holds
+the port's batch-leading inputs (a lockstep ``solve_batch`` forward, each
+lane's rule backward) against ``jax.vmap(jax.grad(...))``.
 """
 
 import time
@@ -185,6 +186,49 @@ def test_jvp_forward_mode_matches_fd():
         xd, _ = st(_t(c), _t(g), fwad.make_dual(_t(h), _t(db)))
         np.testing.assert_array_equal(fwad.unpack_dual(xd).tangent.numpy(),
                                       dx.numpy())
+
+
+def test_vmapped_batch_gradients():
+    """Batched learning loops: the gradient of a batch-leading b (one
+    lockstep solve_batch forward) must match jax.vmap(jax.grad(...)) and
+    each lane's own gradient."""
+    c, g, h = nondegenerate_lp()
+    sj, st = _lp_solvers()
+
+    def jloss(b_):
+        x, _ = sj(jnp.asarray(c), jnp.asarray(g), b_)
+        return jnp.sum(x ** 2)
+
+    rng = np.random.default_rng(1)
+    hb = h[None, :] + 0.1 * rng.normal(size=(4, 3))
+    gj = jax.vmap(jax.grad(jloss))(jnp.asarray(hb))
+    gb = _grad(lambda bv: torch.sum(st(_t(c), _t(g), bv)[0] ** 2), hb)
+    assert len(st.stats["lsqr_steps"]) == 4
+    np.testing.assert_allclose(gb, np.asarray(gj), rtol=RTOL, atol=ATOL)
+    for i in range(4):
+        gi = _grad(lambda bv: torch.sum(st(_t(c), _t(g), bv)[0] ** 2),
+                   hb[i])
+        np.testing.assert_allclose(gb[i], gi, rtol=1e-6, atol=1e-9)
+    # a shared input's cotangent sums the lanes'; forward mode per lane
+    cv = _t(c, grad=True)
+    x, _ = st(cv, _t(g), _t(hb))
+    (gc,) = torch.autograd.grad(torch.sum(x ** 2), cv)
+    per_lane = [_grad(lambda cc: torch.sum(st(cc, _t(g), _t(hb[i]))[0]
+                                           ** 2), c) for i in range(4)]
+    np.testing.assert_allclose(gc.numpy(), np.sum(per_lane, axis=0),
+                               rtol=1e-6, atol=1e-9)
+    _, sf = _lp_solvers("jvp")
+    db = rng.normal(size=(4, 3))
+    (_, _), (dx, _) = torch.func.jvp(lambda b_: sf(_t(c), _t(g), b_),
+                                     (_t(hb),), (_t(db),))
+    for i in range(4):
+        (_, _), (dxi, _) = torch.func.jvp(
+            lambda b_: sf(_t(c), _t(g), b_), (_t(hb[i]),), (_t(db[i]),))
+        np.testing.assert_allclose(dx[i].numpy(), dxi.numpy(), rtol=1e-6,
+                                   atol=1e-9)
+    with pytest.raises(NotImplementedError, match=r"item 14b\)"):
+        st(_t(c), tt.DiagOp(torch.ones(3, dtype=torch.float64)),
+           _t(hb[:, :3]))
 
 
 def test_gradients_at_scale_seconds():

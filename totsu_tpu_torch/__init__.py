@@ -39,7 +39,14 @@ polish=True)`` refines a converged solution on the host in f64
 with the cone projections' derivatives in closed form
 (``solver/dproj.py``).
 
-Not ported yet (ROADMAP.md): batching and distribution.
+Many programs of one layout solve in lockstep: :func:`solve_batch`
+(``parallel/batch.py``, each lane its own status, chunked or whole; the
+direct engine or pdhg), :class:`BatchRunner` (``runtime/batcher.py``,
+bucketed microbatches and an asynchronous ``submit``) and
+:func:`consensus_admm` (``parallel/admm.py``).
+
+Not ported yet (ROADMAP.md): distribution over devices (item 14b) and a
+batched megakernel (item 14c).
 """
 
 from totsu_tpu_torch.solver.params import SolverParam, SolverStatus, SolverError
@@ -50,13 +57,15 @@ from totsu_tpu_torch.solver.cone import (
     ConeLayout, zero, rpos, soc, rsoc, psd, expc, powc, custom,
 )
 from totsu_tpu_torch.solver.operator import (
-    LinOp, DenseOp, DiagOp, SparseOp, BlockedEllOp, ZeroOp, CustomOp, VStackOp,
+    LinOp, DenseOp, BatchedDenseOp, DiagOp, SparseOp, BlockedEllOp, ZeroOp, CustomOp, VStackOp,
     HStackOp, BlockOp, ScaledOp, as_linop,
 )
 from totsu_tpu_torch.problems import (
     ConicProblem, ProbLP, ProbQP, ProbQCQP, ProbSOCP, ProbSDP, MatBuild,
 )
 from totsu_tpu_torch.diff import make_differentiable_solver
+from totsu_tpu_torch.parallel import solve_batch, consensus_admm, AdmmResult
+from totsu_tpu_torch.runtime import BatchRunner
 
 __version__ = "0.1.0"
 
@@ -64,9 +73,10 @@ __all__ = [
     "SolverParam", "SolverStatus", "SolverError", "Solver",
     "solve", "solve_jit", "solve_sequence", "SolveResult", "ResumeState",
     "ConeLayout", "zero", "rpos", "soc", "rsoc", "psd", "expc", "powc", "custom",
-    "LinOp", "DenseOp", "DiagOp", "SparseOp", "BlockedEllOp", "ZeroOp", "CustomOp",
+    "LinOp", "DenseOp", "BatchedDenseOp", "DiagOp", "SparseOp", "BlockedEllOp", "ZeroOp", "CustomOp",
     "VStackOp", "HStackOp",
     "BlockOp", "ScaledOp", "as_linop",
     "ConicProblem", "ProbLP", "ProbQP", "ProbQCQP", "ProbSOCP", "ProbSDP",
-    "MatBuild", "make_differentiable_solver",
+    "MatBuild", "make_differentiable_solver", "solve_batch",
+    "consensus_admm", "AdmmResult", "BatchRunner",
 ]

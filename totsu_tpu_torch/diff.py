@@ -61,9 +61,10 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from totsu_tpu_torch.solver.cone import ConeLayout, resolve_auto_methods
-from totsu_tpu_torch.solver.conic import solve_jit
+from totsu_tpu_torch.solver.batched import solve_batch_jit
+from totsu_tpu_torch.solver.conic import _not_ported, solve_jit
 from totsu_tpu_torch.solver.dproj import dproj_at
-from totsu_tpu_torch.solver.operator import (DenseOp, LinOp,
+from totsu_tpu_torch.solver.operator import (BatchedDenseOp, DenseOp, LinOp,
                                             full_f32_matmul, pin_dtype)
 from totsu_tpu_torch.solver.params import SolverParam
 
@@ -379,11 +380,107 @@ class _DiffSolve(torch.autograd.Function):
                             [plain(t) for t in dleaves])
 
 
+class _DiffSolveBatch(torch.autograd.Function):
+    """(c, b, A) -> (x, y) of a lockstep batch (``solve_batch``), each
+    input (B, ...) or shared by every lane; the rule runs each lane's
+    single-solve rule (:class:`_Spec`) and sums a shared input's
+    cotangents over the lanes: the port's form of the JAX package's
+    ``jax.vmap(jax.grad(...))``."""
+
+    @staticmethod
+    def forward(spec, c, b, a):
+        lanes = _lanes(c, b, a)
+        res = solve_batch_jit(_expand(c, lanes, 1), _expand(a, lanes, 2),
+                              _expand(b, lanes, 1), spec.cone, spec.param)
+        return res.x, res.y
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        spec, c, b, a = inputs
+        ctx.spec = spec
+        saved = (c, b, *output, a)
+        if spec.mode == "vjp":
+            ctx.save_for_backward(*saved)
+        else:
+            ctx.save_for_forward(*saved)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, x_bar, y_bar):
+        spec = ctx.spec
+        if spec.mode != "vjp":
+            return _DiffSolve.backward(ctx, x_bar, y_bar)
+        with _outside_torch_func() as plain:
+            c, b, x, y, a = (plain(t) for t in ctx.saved_tensors)
+            x_bar, y_bar = plain(x_bar), plain(y_bar)
+            steps, bars = [], []
+            for i in range(x.shape[0]):
+                c_bar, b_bar, (a_bar,) = spec.vjp(
+                    _lane(c, i, 1), _lane(b, i, 1), x[i], y[i],
+                    [_lane(a, i, 2)], x_bar[i], y_bar[i])
+                bars.append((c_bar, b_bar, a_bar))
+                steps.append(spec.stats["lsqr_steps"])
+            spec.stats["lsqr_steps"] = steps
+            return (None,) + tuple(_gather([t[j] for t in bars], ref)
+                                   for j, ref in enumerate((c, b, a)))
+
+    @staticmethod
+    def jvp(ctx, _spec_t, dc, db, da):
+        spec = ctx.spec
+        if spec.mode != "jvp":
+            return _DiffSolve.jvp(ctx, _spec_t, dc, db, da)
+        with _outside_torch_func() as plain:
+            c, b, x, y, a = (plain(t) for t in ctx.saved_tensors)
+            dc, db, da = plain(dc), plain(db), plain(da)
+            steps, outs = [], []
+            for i in range(x.shape[0]):
+                outs.append(spec.jvp(
+                    _lane(c, i, 1), _lane(b, i, 1), x[i], y[i],
+                    [_lane(a, i, 2)], _lane(dc, i, 1), _lane(db, i, 1),
+                    [_lane(da, i, 2)]))
+                steps.append(spec.stats["lsqr_steps"])
+            spec.stats["lsqr_steps"] = steps
+            return (torch.stack([o[0] for o in outs]),
+                    torch.stack([o[1] for o in outs]))
+
+
+def _lanes(c, b, a) -> int:
+    """The batch's lane count, from whichever input has a lane
+    dimension."""
+    for t, rank in ((c, 1), (b, 1), (a, 2)):
+        if t.dim() == rank + 1:
+            return t.shape[0]
+    raise ValueError("a batch needs a (B, n) c, a (B, m) b or a (B, m, n) "
+                     "A")
+
+
+def _expand(t, lanes, rank):
+    """``t`` with its lane dimension: a shared input of per-lane ``rank``
+    expanded (no copy)."""
+    return t if t.dim() == rank + 1 else t.expand(lanes, *t.shape)
+
+
+def _lane(t, i, rank):
+    """Lane ``i`` of an input of per-lane ``rank``; a shared input (None
+    too) is every lane's."""
+    if t is None or t.dim() == rank:
+        return t
+    return t[i]
+
+
+def _gather(per_lane, ref):
+    """The cotangent of input ``ref`` from its lanes' cotangents: stacked
+    for a batched input, summed over the lanes for a shared one."""
+    out = torch.stack(per_lane)
+    return out.to(ref.dtype) if out.dim() == ref.dim() \
+        else out.sum(dim=0).to(ref.dtype)
+
+
 class DifferentiableSolver:
     """``solver(c, a, b) -> (x, y)``, differentiable through the
     optimality conditions (see :func:`make_differentiable_solver`).
     ``stats['lsqr_steps']`` holds the LSQR steps of the last backward or
-    forward-mode call."""
+    forward-mode call (a list, one per lane, for a batch)."""
 
     def __init__(self, cone, param, mode, lsqr_iters, lsqr_rtol):
         self.cone = resolve_auto_methods(cone, param)
@@ -394,6 +491,8 @@ class DifferentiableSolver:
         self.stats = {}
 
     def __call__(self, c, a, b):
+        if _is_batch(c, a, b):
+            return self._batch(c, a, b)
         leaves, rebuild = _flatten(a)
         dense = isinstance(a, torch.Tensor) or isinstance(a, DenseOp)
         if isinstance(a, DenseOp):
@@ -403,6 +502,27 @@ class DifferentiableSolver:
         spec = _Spec(self.cone, self.param, self.mode, self.lsqr_iters,
                      self.lsqr_rtol, rebuild, dense, self.stats)
         return _DiffSolve.apply(spec, c, b, *leaves)
+
+    def _batch(self, c, a, b):
+        """A lockstep batch: c (B, n) or (n,), A (B, m, n) or (m, n) dense,
+        b (B, m) or (m,), at least one with lanes; x (B, n), y (B, m)."""
+        if isinstance(a, (DenseOp, BatchedDenseOp)):
+            a = a.a
+        if not isinstance(a, torch.Tensor):
+            raise _not_ported(f"a batch of structured operators "
+                              f"({type(a).__name__}) in "
+                              "make_differentiable_solver", "14b")
+        spec = _Spec(self.cone, self.param, self.mode, self.lsqr_iters,
+                     self.lsqr_rtol, lambda ls: DenseOp(ls[0]), True,
+                     self.stats)
+        return _DiffSolveBatch.apply(spec, c, b, a)
+
+
+def _is_batch(c, a, b) -> bool:
+    """Whether the inputs carry a lane dimension: a (B, n) c, a (B, m) b
+    or a (B, m, n) A."""
+    return (c.dim() == 2 or b.dim() == 2 or isinstance(a, BatchedDenseOp)
+            or (isinstance(a, torch.Tensor) and a.dim() == 3))
 
 
 def make_differentiable_solver(cone: ConeLayout,

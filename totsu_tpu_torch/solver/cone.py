@@ -463,13 +463,16 @@ def _proj_pow_blocks(xb: torch.Tensor, alpha) -> torch.Tensor:
 
 
 def _project_factor(f: Factor, seg: torch.Tensor, dual: bool) -> torch.Tensor:
+    """Project one factor's segment: (total,), or (B, total) with a
+    leading lane dimension, whose B x count blocks go through one call of
+    the block projection (one kernel launch for exp, pow and 'jacobi')."""
     if f.total == 0:
         return seg
     if f.kind == ZERO:
         return seg if dual else torch.zeros_like(seg)
     if f.kind == RPOS:
         return torch.clamp(seg, min=0.0)
-    blocks = seg.reshape(f.count, f.dim)
+    blocks = seg.reshape(-1, f.dim)
     if f.kind == SOC:
         out = _proj_soc_blocks(blocks)
     elif f.kind == RSOC:
@@ -494,7 +497,7 @@ def _project_factor(f: Factor, seg: torch.Tensor, dual: bool) -> torch.Tensor:
             out = f.proj(blocks)
     else:
         raise ValueError(f"unknown cone kind {f.kind!r}")
-    return out.reshape(f.total)
+    return out.reshape(seg.shape)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -510,34 +513,35 @@ class ConeLayout:
         return sum(f.total for f in self.factors)
 
     def project(self, x: torch.Tensor, dual: bool) -> torch.Tensor:
-        """Euclidean projection of the full slack vector onto K (or K*)."""
+        """Euclidean projection of the full slack vector onto K (or K*):
+        ``x`` is (dim,), or (B, dim) for B lanes of one layout."""
         segs = []
         off = 0
         for f in self.factors:
-            segs.append(_project_factor(f, x[off:off + f.total], dual))
+            segs.append(_project_factor(f, x[..., off:off + f.total], dual))
             off += f.total
         if not segs:
             return x
-        return torch.cat(segs) if len(segs) > 1 else segs[0]
+        return torch.cat(segs, dim=-1) if len(segs) > 1 else segs[0]
 
     def group_reduce(self, t: torch.Tensor, reduce_fn) -> torch.Tensor:
         """Replace each block of every ``needs_group`` factor of ``t`` by
-        ``reduce_fn(blocks, dim=1, keepdim=True)`` over the block — the
+        ``reduce_fn(blocks, dim=-1, keepdim=True)`` over the block — the
         grouping walk shared by the preconditioner (min) and Ruiz
-        equilibration (max)."""
+        equilibration (max). ``t`` is (dim,) or (B, dim)."""
         segs = []
         off = 0
         for f in self.factors:
-            seg = t[off:off + f.total]
+            seg = t[..., off:off + f.total]
             if f.needs_group and f.total > 0:
-                blocks = seg.reshape(f.count, f.dim)
-                seg = reduce_fn(blocks, dim=1, keepdim=True).expand(
-                    blocks.shape).reshape(f.total)
+                blocks = seg.reshape(*seg.shape[:-1], f.count, f.dim)
+                seg = reduce_fn(blocks, dim=-1, keepdim=True).expand(
+                    blocks.shape).reshape(seg.shape)
             segs.append(seg)
             off += f.total
         if not segs:
             return t
-        return torch.cat(segs) if len(segs) > 1 else segs[0]
+        return torch.cat(segs, dim=-1) if len(segs) > 1 else segs[0]
 
     def group_min(self, t: torch.Tensor) -> torch.Tensor:
         """Preconditioner grouping (see :meth:`group_reduce`)."""

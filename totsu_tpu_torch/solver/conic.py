@@ -525,7 +525,7 @@ def _check_supported(param: SolverParam, row_sharding):
     if param.accel not in ("", "halpern", "restart"):
         raise ValueError(f"unknown accel {param.accel!r}")
     if row_sharding is not None:
-        raise _not_ported("row_sharding", "14")
+        raise _not_ported("row_sharding", "14b")
 
 
 def _on_card(a_op: LinOp) -> bool:

@@ -229,6 +229,78 @@ class DenseOp(LinOp):
 
 
 @dataclasses.dataclass(frozen=True)
+class BatchedDenseOp(LinOp):
+    """B dense (m, n) operators, one per lane of a lockstep batch: ``a`` is
+    (B, m, n), vectors are (B, n) and (B, m), and every method works lane
+    by lane. ``shape`` is one lane's (m, n), ``batch`` is B.
+
+    The pair {A u, A^T v} is two ``torch.bmm`` calls, in full f32 inside
+    the solvers (:func:`full_f32_matmul`): the JAX package leaves its
+    vmapped pair to XLA, not to its Pallas kernel. An A expanded from one
+    (m, n) matrix (batch stride 0) is kept as it is, with no copy."""
+    a: torch.Tensor
+    device: Any = None
+
+    def __post_init__(self):
+        a = as_data(self.a, self.device, "A")
+        if a.dim() != 3:
+            raise ValueError(f"BatchedDenseOp: A must be (B, m, n), got "
+                             f"{tuple(a.shape)}")
+        _set(self, a=a, device=a.device)
+
+    @property
+    def dtype(self):
+        return self.a.dtype
+
+    @property
+    def shape(self):
+        return tuple(self.a.shape[1:])
+
+    @property
+    def batch(self) -> int:
+        return self.a.shape[0]
+
+    def lane(self, i: int) -> DenseOp:
+        """Lane ``i`` as a :class:`DenseOp` (a view)."""
+        return DenseOp(self.a[i])
+
+    def _widened(self, x):
+        """A in the vectors' dtype: a low-precision copy (``astype``, for
+        ``matvec_dtype``) is widened on the fly, as jnp promotes it."""
+        return self.a if self.a.dtype == x.dtype else self.a.to(x.dtype)
+
+    def matvec(self, x):
+        return torch.bmm(self._widened(x), x.unsqueeze(-1)).squeeze(-1)
+
+    def rmatvec(self, y):
+        return torch.bmm(y.unsqueeze(1), self._widened(y)).squeeze(1)
+
+    def col_abssum(self):
+        return self.a.abs().sum(dim=1)
+
+    def row_abssum(self):
+        return self.a.abs().sum(dim=2)
+
+    def row_absmax(self):
+        return self.a.abs().amax(dim=2)
+
+    def col_absmax(self):
+        return self.a.abs().amax(dim=1)
+
+    def col_sqsum(self):
+        return (self.a * self.a).sum(dim=1)
+
+    def diag_scale(self, d, e):
+        return type(self)(d[:, :, None] * self.a * e[:, None, :])
+
+    def astype(self, dtype):
+        return type(self)(self.a.to(as_dtype(dtype)))
+
+    def to_dense(self):
+        return self.a
+
+
+@dataclasses.dataclass(frozen=True)
 class DiagOp(LinOp):
     """diag(d) operator — e.g. diagonal-P QPs (ref benchmark_qp's shape)."""
     d: torch.Tensor

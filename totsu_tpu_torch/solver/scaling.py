@@ -25,11 +25,12 @@ def ruiz_equilibrate_op(a_op: LinOp, b: torch.Tensor, c: torch.Tensor,
                         cone: ConeLayout, iters: int = 10):
     """Return (a_op_s, b_s, c_s, d, e) with a_op_s = diag(d) A diag(e);
     both absmaxes of a sweep are measured on the same operator before
-    either scaling is applied."""
-    m, n = a_op.shape
+    either scaling is applied. A :class:`BatchedDenseOp` with (B, m) b and
+    (B, n) c scales each lane on its own."""
     dtype = torch.promote_types(b.dtype, c.dtype)
-    d = torch.ones(m, dtype=dtype, device=b.device)
-    e = torch.ones(n, dtype=dtype, device=b.device)
+    # (m,) and (n,), or (B, m) and (B, n) for a batch of lanes
+    d = torch.ones(b.shape, dtype=dtype, device=b.device)
+    e = torch.ones(c.shape, dtype=dtype, device=b.device)
     for _ in range(iters):
         row = _group_max(cone, a_op.row_absmax())
         dr = 1.0 / torch.sqrt(torch.clamp(row, min=1e-8))
