@@ -24,7 +24,7 @@ itself); polish on the card (phase 27: the n=1000 LP in f32 and f64, the
 n=50 QP on the megakernel, the partitioning SDP at k = 48, which the
 polish declines, and at k = 6, which it accepts) and differentiation
 through solves (phase 28: DPi in closed form against central differences
-of kernels B and J, the n=1000 LP's gradients in f64 against HiGHS's
+of kernels B and J, the n=300 LP's gradients in f64 against HiGHS's
 active-set closed form and its forward-mode tangent, the JAX package's
 f32 box LP, a BlockedEllOp's tile cotangent against its dense twin's);
 lockstep batches (phases 29-33: bench.py's batch cells, 8 and 64 n=100
@@ -32,7 +32,14 @@ LPs, 32 growth portfolios with kernel B taking every lane's exp and pow
 blocks in one launch, chunking, 512 nearest-correlation SDPs with kernel
 J taking every lane's PSD block in one launch, each held against single
 solves; BatchRunner's MPC fleet and a burst of 256 requests through
-submit; consensus ADMM against the joint LP and the trajectory sweep).
+submit; consensus ADMM against the joint LP and the trajectory sweep);
+distribution (phase 34: ranks spawned as processes that join through
+multihost.init, the n=1000 LP row-sharded on a 1-rank NCCL world and on
+2 gloo ranks sharing the card, kernel 1 on each rank's rows, the
+from-tiles blocked-ELL LP, the batch64 cell and the ADMM fleet sharded,
+each against its unsharded solve, with the collectives counted); the
+native C++ engine (phase 35: kernel B against its bisection
+projections, the golden LP).
 Each phase prints one line of its own
 numbers; any failed check raises, so the script exits non-zero and prints
 no final line. It needs a CUDA device and the repository beside it; it imports
@@ -2150,11 +2157,13 @@ def ell_tile_cotangent(tt, ell, g_blocks, g_blocks_t, m, n, bm):
 
 def polish_diff_phases(tt, dev, kernels, refs, lp_n=1000, qp_n=50,
                        grid=(8, 6), grid27=(3, 2), box_n=700, ell_n=4096,
-                       dpi=DPI28, prof_steps=50, lsqr_iters=LSQR_ITERS28):
+                       dpi=DPI28, prof_steps=50, lsqr_iters=LSQR_ITERS28,
+                       diff_n=300):
     """Phases 27-28: polish and differentiation through solves on the card
     (the sizes are arguments only so that the flow can be rehearsed
     small). ``refs()`` returns the CPU references (HiGHS's x for the
-    n = ``lp_n`` LP, the partitioning SDP's f64 objective). Each path is
+    n = ``lp_n`` LP, the partitioning SDP's f64 objective); 28b's LP is
+    ``make_lp(diff_n)``, its HiGHS vertex solved here. Each path is
     driven once through solve(..., polish=True) or a differentiable
     solver, the launch counts set to 0 just before it. Returns the
     kernels' launch counts over these paths."""
@@ -2350,11 +2359,21 @@ def polish_diff_phases(tt, dev, kernels, refs, lp_n=1000, qp_n=50,
           "error / adjoint error): " + "; ".join(parts28a)
           + f"; {time.perf_counter() - t28:.1f} s", flush=True)
 
-    # ---- 28b: the n=1000 LP in f64: gradients of ||x||^2 by mode='vjp'
+    # ---- 28b: the n=300 LP in f64: gradients of ||x||^2 by mode='vjp'
     # against HiGHS's active-set closed form (1e-6: the gradient after
-    # LSQR's rtol 1e-12 is 8.8e-7 from it, the CPU and the card alike),
-    # then mode='jvp' (below)
+    # LSQR's rtol 1e-12 is 5e-9 from it on the CPU; 8.8e-7 at n = 1000,
+    # the CPU and the card alike), then mode='jvp' (below). n = 1000 took
+    # some 88,000 LSQR steps in each mode (169 s of the script on an
+    # NVIDIA H100 80GB HBM3 at 700 W, which then ran past 1,050 s); n =
+    # 300 takes about 12,700
     t28b = time.perf_counter()
+    from scipy.optimize import linprog
+    c1, a1, b1 = make_lp(diff_n)
+    lp_cone = tt.ConeLayout([tt.rpos(a1.shape[0])])
+    t64 = [torch.from_numpy(v).to(dev).double() for v in (c1, a1, b1)]
+    a64, b64 = a1.astype(np.float64), b1.astype(np.float64)
+    xh = linprog(c1.astype(np.float64), A_ub=a64, b_ub=b64,
+                 bounds=(None, None), method="highs").x
     p9 = tt.SolverParam(method="direct", accel="halpern", check_period=20,
                         eps_acc=1e-9, max_iter=400_000)
     solver = tt.make_differentiable_solver(lp_cone, p9,
@@ -2382,12 +2401,12 @@ def polish_diff_phases(tt, dev, kernels, refs, lp_n=1000, qp_n=50,
           f"backward: {cnt_b['dual_matvec']} dual_matvec launches for "
           f"{steps} LSQR steps (want 2 a step and 1 before)")
     gb_closed, n_b = active_closed_form(a64, b64, xh)
-    check(n_b == lp_n, f"HiGHS's vertex has {n_b} active rows, not "
-          f"{lp_n}: the closed form needs a nondegenerate vertex")
+    check(n_b == diff_n, f"HiGHS's vertex has {n_b} active rows, not "
+          f"{diff_n}: the closed form needs a nondegenerate vertex")
     err_b = rel2(gb.cpu().numpy(), gb_closed)
     check(all(bool(torch.isfinite(g).all()) for g in (gc, ga, gb)),
           "non-finite gradient")
-    print(f"phase 28b LP n={lp_n} f64 (method='direct', Halpern, eps_acc "
+    print(f"phase 28b LP n={diff_n} f64 (method='direct', Halpern, eps_acc "
           f"1e-9): forward {wall_f:.2f} s; backward (mode='vjp', "
           f"d||x||^2 / dc, dA, db) {wall_b:.3f} s, {steps} LSQR steps "
           f"({1e3 * wall_b / max(steps, 1):.3f} ms a step), "
@@ -2408,9 +2427,9 @@ def polish_diff_phases(tt, dev, kernels, refs, lp_n=1000, qp_n=50,
     # mode='jvp' along a random (dc, dA, db) on the same LP against the
     # contraction of mode='vjp''s gradient with that direction. The gate,
     # 1e-7, is set from the readings: the two LSQR solves (each some
-    # 90,000 steps at rtol 1e-12) agree to 2.7e-8 here, and a tangent
-    # that lacked its dA term reads the share of <grad_A, dA> in the
-    # contraction, which the phase prints and requires above 1e-5
+    # 90,000 steps at rtol 1e-12 at n = 1000) agreed to 2.7e-8, and a
+    # tangent that lacked its dA term reads the share of <grad_A, dA> in
+    # the contraction, which the phase prints and requires above 1e-5
     rng = np.random.default_rng(281)
     dirs = [torch.from_numpy(rng.normal(size=t.shape)).to(dev)
             for t in t64]
@@ -2434,7 +2453,7 @@ def polish_diff_phases(tt, dev, kernels, refs, lp_n=1000, qp_n=50,
     check(err_j <= 1e-7 and err_no_da > 1e-5,
           f"<grad, d> {lhs} vs the JVP's 2 x.dx {rhs} (rel {err_j:.3e}, "
           f"limit 1e-7; without the dA term {err_no_da:.3e}, limit > 1e-5)")
-    print(f"phase 28b (continued) LP n={lp_n} f64: mode='jvp' along a "
+    print(f"phase 28b (continued) LP n={diff_n} f64: mode='jvp' along a "
           f"random (dc, dA, db) against mode='vjp''s gradient: <grad, d> "
           f"{lhs:.12e} vs 2 x.dx {rhs:.12e} (rel {err_j:.1e}, limit 1e-7; "
           f"the contraction without its dA term {err_no_da:.1e}); "
@@ -2951,6 +2970,505 @@ def batch_phases(tt, dev, kernels, n29=100, lanes29=8, lanes29b=64,
           + f" in {wall_sweep:.2f} s; "
           f"{time.perf_counter() - t33:.1f} s", flush=True)
     return counts
+
+
+# ---- phases 34-35: distribution over torch.distributed ranks and the
+# native engine
+
+#: phase 34a's parameters (the main path's Halpern profile, at a fixed
+#: count: eps_acc far below what the count reaches)
+P34A = dict(accel="halpern", normalize=True, equil_iters=10,
+            check_period=20, eps_acc=1e-12)
+#: phase 34b's (plain pdhg at a fixed count), 34c's (phase 29b's batch64)
+#: and 34d's (phase 33's subsolves)
+P34B = dict(eps_acc=1e-12, check_period=20)
+P34C = dict(eps_acc=1e-9, check_period=20)
+P34D = dict(max_iter=20_000, eps_acc=1e-3, check_period=20)
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _timed(dev, fn):
+    """(fn(), wall seconds), the device synchronized on both sides."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, time.perf_counter() - t0
+
+
+def tiles_box_ell(tt, n, dev, bm=128):
+    """``make_tiles_lp``'s [band; I; -I] as one BlockedEllOp (m = 3n; the
+    box rows as identity tiles), the shape ``shard_blocked_ell_problem``
+    takes; returns (op, b, c)."""
+    tiles, b, c = make_tiles_lp(n, bm)
+    nb = n // bm
+    eye = np.eye(bm, dtype=np.float32)
+    for i in range(nb):
+        tiles[(nb + i, i)] = eye
+        tiles[(2 * nb + i, i)] = -eye
+    op = tt.BlockedEllOp.from_tiles(tiles, m=3 * n, n=n, block=(bm, bm),
+                                    device=dev)
+    return op, b, c
+
+
+def dist_data(tt, dev, cfg, what):
+    """Phase 34's problems, built alike in the main process and in every
+    rank: 'dense' (c, A, b, layout) of bench.make_lp, 'ell' the from-tiles
+    LP, 'batch' 29b's batch64, 'admm' 33's fleet in f64."""
+    f32, f64 = torch.float32, torch.float64
+    if what == "dense":
+        c, g, h = make_lp(cfg["lp_n"])
+        return (torch.tensor(c, dtype=f64, device=dev),
+                torch.tensor(g, dtype=f64, device=dev),
+                torch.tensor(h, dtype=f64, device=dev),
+                tt.ConeLayout([tt.rpos(g.shape[0])]))
+    if what == "ell":
+        op, b, c = tiles_box_ell(tt, cfg["ell_n"], dev)
+        return (torch.from_numpy(c).to(dev), op, torch.from_numpy(b).to(dev),
+                tt.ConeLayout([tt.rpos(op.m)]))
+    if what == "batch":
+        lps = [make_lp(cfg["n34c"], seed=100 + i)
+               for i in range(cfg["lanes34c"])]
+        c, a, b = (torch.tensor(np.stack([x[j] for x in lps]), dtype=f32,
+                                device=dev) for j in range(3))
+        return c, a, b, tt.ConeLayout([tt.rpos(a.shape[1])])
+    c, a, b = (torch.tensor(x, dtype=f64, device=dev)
+               for x in make_fleet(*cfg["fleet"]))
+    return c, a, b, tt.ConeLayout([tt.rpos(cfg["fleet"][2])])
+
+
+def _dense_runs(tt, dev, cfg, solve):
+    """34a's two solves through ``solve(problem, param)``: f64 at
+    ``dense_iters``, then f32 at ``f32_iters`` for the times (after a
+    short warm-up). Returns {dtype name: (status, iters, x, wall,
+    dual_matvec launches)}."""
+    from totsu_tpu_torch.ops.kernels import dual_matvec as dm
+    c, a, b, lay = dist_data(tt, dev, cfg, "dense")
+    out = {}
+    for dtype, iters in ((torch.float64, cfg["dense_iters"]),
+                         (torch.float32, cfg["f32_iters"])):
+        prob = tt.ConicProblem(c.to(dtype), tt.DenseOp(a.to(dtype)),
+                               b.to(dtype), lay)
+        param = tt.SolverParam(max_iter=iters, **P34A)
+        if dtype == torch.float32:
+            solve(prob, tt.SolverParam(max_iter=40, **P34A))  # a warm-up
+        dm.launches = 0
+        res, wall = _timed(dev, lambda: solve(prob, param))
+        out[str(dtype).split(".")[-1]] = (
+            res.status, res.iters, res.x.double().cpu().numpy(), wall,
+            dm.launches)
+    return out
+
+
+def _rank_dense(tt, dev, cfg, mesh):
+    from totsu_tpu_torch.parallel import _collectives as coll
+    from totsu_tpu_torch.parallel import shard_dense_problem
+    from totsu_tpu_torch.ops.kernels import dual_matvec as dm
+
+    counts = {}
+
+    def solve(prob, param):
+        sharded = shard_dense_problem(prob, mesh)
+        coll.reset()
+        res = sharded.solve_jit(param)
+        counts[str(prob.c.dtype)] = dict(coll.counts)
+        counts["op"] = sharded.a
+        return res
+
+    runs = _dense_runs(tt, dev, cfg, solve)
+    op = counts.pop("op")
+    m, n = op.shape
+    # one dual_matvec alone: its collectives and kernel launches
+    u = torch.ones(n, dtype=torch.float32, device=dev)
+    v = torch.ones(m, dtype=torch.float32, device=dev)
+    coll.reset()
+    dm.launches = 0
+    op.dual_matvec(u, v)
+    one = (dict(coll.counts), dm.launches)
+    # the time of one collective: the n-sum of the f32 update, back to back
+    reps = cfg["coll_reps"]
+    _, wall = _timed(dev, lambda: [coll.reduce_sum(u, op.group)
+                                   for _ in range(reps)])
+    return {"runs": runs, "counts": counts, "one": one,
+            "us_per_collective": 1e6 * wall / reps,
+            "rows": op.local.shape[0]}
+
+
+def _rank_ell(tt, dev, cfg, mesh):
+    from totsu_tpu_torch.parallel import _collectives as coll
+    from totsu_tpu_torch.parallel import shard_blocked_ell_problem
+    c, op, b, lay = dist_data(tt, dev, cfg, "ell")
+    sharded = shard_blocked_ell_problem(tt.ConicProblem(c, op, b, lay), mesh)
+    del op
+    param = tt.SolverParam(max_iter=cfg["ell_iters"], **P34B)
+    coll.reset()
+    res, wall = _timed(dev, lambda: sharded.solve_jit(param))
+    return {"status": res.status, "iters": res.iters,
+            "x": res.x.cpu().numpy(), "wall": wall,
+            "counts": dict(coll.counts),
+            "tiles": tuple(sharded.a.blocks.shape)}
+
+
+def _rank_batch(tt, dev, cfg, mesh):
+    from totsu_tpu_torch.parallel import _collectives as coll
+    c, a, b, lay = dist_data(tt, dev, cfg, "batch")
+    param = tt.SolverParam(max_iter=cfg["iters34c"], **P34C)
+    tt.solve_batch(c, a, b, lay, tt.SolverParam(max_iter=40, **P34C),
+                   mesh=mesh)           # a warm-up (the CUDA graph)
+    coll.reset()
+    res, wall = _timed(dev, lambda: tt.solve_batch(c, a, b, lay, param,
+                                                   mesh=mesh))
+    return {"status": res.status.cpu().numpy(),
+            "iters": res.iters.cpu().numpy(), "x": res.x.cpu().numpy(),
+            "wall": wall, "counts": dict(coll.counts)}
+
+
+def _rank_admm(tt, dev, cfg, mesh):
+    from totsu_tpu_torch.parallel import _collectives as coll
+    c, a, b, lay = dist_data(tt, dev, cfg, "admm")
+    coll.reset()
+    res, wall = _timed(dev, lambda: tt.consensus_admm(
+        c, a, b, lay, max_outer=cfg["admm_rounds"], tol=0.0,
+        param=tt.SolverParam(**P34D), mesh=mesh))
+    return {"z": res.z, "rounds": res.outer_iters, "wall": wall,
+            "counts": dict(coll.counts)}
+
+
+_RANK_SCENARIOS = {"dense": ("row", _rank_dense), "ell": ("row", _rank_ell),
+                   "batch": ("batch", _rank_batch),
+                   "admm": ("batch", _rank_admm)}
+
+
+def dist_rank(rank, world, port, backend, device_type, cfg, scenarios, out):
+    """One rank of phase 34, in a process of its own: it joins the group
+    through ``multihost.init`` (a tcp coordinator), runs ``scenarios`` on
+    meshes over the whole world and sends back their results."""
+    import traceback
+    import torch.distributed as dist
+    try:
+        import totsu_tpu_torch as tt
+        from totsu_tpu_torch.parallel import make_mesh, multihost
+        multihost.init(coordinator_address=f"127.0.0.1:{port}",
+                       num_processes=world, process_id=rank,
+                       backend=backend)
+        if device_type == "cuda":
+            torch.cuda.set_device(0)
+        dev = torch.device(device_type, 0) if device_type == "cuda" \
+            else torch.device("cpu")
+        rec = {"multihost": multihost.is_multihost(),
+               "backend": dist.get_backend()}
+        for name in scenarios:
+            axis, fn = _RANK_SCENARIOS[name]
+            mesh = make_mesh(**{axis: world}, devices=device_type)
+            rec[name] = fn(tt, dev, cfg, mesh)
+        out.put((rank, True, rec))
+    except BaseException:
+        out.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(nranks, backend, device_type, cfg, scenarios, timeout):
+    """Spawn ``nranks`` processes of :func:`dist_rank`, wait at most
+    ``timeout`` s for their results, stop every one of them; a rank that
+    fails, or a world past its time, fails the phase. A port lost between
+    the probe and the bind is tried once more on a fresh one."""
+    import queue
+    import socket
+    import torch.multiprocessing as tmp
+    ctx = tmp.get_context("spawn")
+    for attempt in range(2):
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        out = ctx.Queue()
+        procs = [ctx.Process(target=dist_rank, args=(
+            r, nranks, port, backend, device_type, cfg, scenarios, out),
+            daemon=True) for r in range(nranks)]
+        for p in procs:
+            p.start()
+        results, errors = {}, {}
+        deadline = time.monotonic() + timeout
+        try:
+            while len(results) + len(errors) < nranks:
+                try:
+                    rank, ok, val = out.get(timeout=max(
+                        1.0, deadline - time.monotonic()))
+                except queue.Empty:
+                    break
+                (results if ok else errors)[rank] = val
+                if time.monotonic() > deadline:
+                    break
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        lost = any("address already in use" in e.lower()
+                   for e in errors.values())
+        if not lost:
+            break
+    check(not errors, f"34: {backend} ranks failed: " + "\n".join(
+        f"rank {r}: {e}" for r, e in sorted(errors.items()))[-4000:])
+    check(len(results) == nranks, f"34: {len(results)} of {nranks} "
+          f"{backend} ranks answered within {timeout} s")
+    check(all(p.exitcode == 0 for p in procs), "34: rank exit codes "
+          f"{[p.exitcode for p in procs]}")
+    return [results[r] for r in range(nranks)]
+
+
+def distribution_phases(tt, dev, kernels, lp_n=1000, dense_iters=2000,
+                        f32_iters=400, ell_n=65_536, ell_iters=500,
+                        n34c=100, lanes34c=64, iters34c=8000,
+                        fleet=(8, 64, 192), admm_rounds=4, coll_reps=200,
+                        timeout=600):
+    """Phase 34: the distribution layer, one process per rank. 34a the
+    n = 1000 LP row-sharded on a 1-rank NCCL world (gloo off the card) and
+    on a 2-rank gloo world whose ranks share the card; 34b the from-tiles
+    blocked-ELL LP, 34c 29b's batch64 and 34d 33's ADMM fleet on the
+    2-rank world; 34e the ranks joined through ``multihost.init``. Every
+    result is held against the unsharded solve in this process. The
+    kernels are built (phase 1) before the ranks start and load them from
+    ``build/``. Returns the ranks' kernel launches (dual_matvec's)."""
+    t34 = time.perf_counter()
+    on_card = dev.type == "cuda"
+    cfg = dict(lp_n=lp_n, dense_iters=dense_iters, f32_iters=f32_iters,
+               ell_n=ell_n, ell_iters=ell_iters, n34c=n34c,
+               lanes34c=lanes34c, iters34c=iters34c, fleet=fleet,
+               admm_rounds=admm_rounds, coll_reps=coll_reps)
+    counts = {k: 0 for k in kernels}
+    # the unsharded references, in this process, before any rank starts
+    ref_dense = _dense_runs(tt, dev, cfg, lambda p, q: p.solve_jit(q))
+    c, op, b, lay = dist_data(tt, dev, cfg, "ell")
+    ref_ell, wall_ell = _timed(dev, lambda: tt.solve_jit(
+        c, op, b, lay, tt.SolverParam(max_iter=ell_iters, **P34B)))
+    m_ell, n_ell = op.shape
+    del op
+    c, a, b, lay = dist_data(tt, dev, cfg, "batch")
+    p34c = tt.SolverParam(max_iter=iters34c, **P34C)
+    tt.solve_batch(c, a, b, lay, tt.SolverParam(max_iter=40, **P34C))
+    ref_batch, wall_batch = _timed(dev, lambda: tt.solve_batch(
+        c, a, b, lay, p34c))
+    # each rank's lanes alone, unsharded: a lockstep lane's rounding on
+    # the card depends on the batch's size (the reductions' and bmm's
+    # launch shapes), so a rank's 32 lanes are held bitwise to these and
+    # within the lane bound to the 64-lane batch
+    halves = [slice(0, lanes34c // 2), slice(lanes34c // 2, lanes34c)]
+    ref_halves = [tt.solve_batch(c[h], a[h], b[h], lay, p34c)
+                  for h in halves]
+    c, a, b, lay = dist_data(tt, dev, cfg, "admm")
+    ref_admm = tt.consensus_admm(c, a, b, lay, max_outer=admm_rounds,
+                                 tol=0.0, param=tt.SolverParam(**P34D))
+    del c, a, b
+
+    worlds = {"1 rank " + ("NCCL" if on_card else "gloo"): run_ranks(
+        1, "nccl" if on_card else "gloo", dev.type, cfg, ["dense"],
+        timeout),
+        "2 ranks gloo": run_ranks(2, "gloo", dev.type, cfg,
+                                  ["dense", "ell", "batch", "admm"],
+                                  timeout)}
+
+    # ---- 34a: dense row sharding against the unsharded solve
+    st64, it64, x64, _, _ = ref_dense["float64"]
+    _, it32, _, wall32, _ = ref_dense["float32"]
+    bound = 1e-9 * max(1.0, float(np.abs(x64).max()))
+    line = []
+    for world, recs in worlds.items():
+        for r, rec in enumerate(recs):
+            d = rec["dense"]
+            st, it, x, _, launches = d["runs"]["float64"]
+            err = float(np.abs(x - x64).max())
+            check(st == st64 and it == it64 and err <= bound,
+                  f"34a {world} rank {r}: status {st}, {it} iterations, "
+                  f"|x - x_unsharded| {err:.3e} against status {st64}, "
+                  f"{it64} iterations, bound {bound:.3e}")
+            check(not on_card or launches >= 2 * it,
+                  f"34a {world} rank {r}: {launches} dual_matvec launches "
+                  f"for {it} iterations")
+            check(d["one"] == ({("gather", 4 * lp_n): 1, ("sum", lp_n): 1},
+                               1 if on_card else 0),
+                  f"34a {world} rank {r}: one dual_matvec made {d['one']}")
+            counts["dual_matvec"] += launches + d["runs"]["float32"][4] \
+                + d["one"][1]
+            _, it_s, _, wall_s, _ = d["runs"]["float32"]
+            line.append(
+                f"{world} rank {r} ({d['rows']} rows): f64 {it} "
+                f"iterations, |x - x_unsharded|_inf {err:.2e} (bound "
+                f"{bound:.1e}{', bitwise' if err == 0 else ''}), "
+                f"{launches / it:.2f} dual_matvec launches/iteration; f32 "
+                f"{1e6 * wall_s / it_s:.1f} us/iteration (unsharded "
+                f"{1e6 * wall32 / it32:.1f}); {d['us_per_collective']:.1f} "
+                f"us per collective (n-sum, back to back), 2 collectives "
+                f"per dual_matvec; collectives in the f32 solve "
+                f"{sum(d['counts']['torch.float32'].values())}")
+    print(f"phase 34a dense row sharding, bench.make_lp({lp_n}) (A "
+          f"{4 * lp_n}x{lp_n}), Halpern + Ruiz + normalize, f64 "
+          f"{dense_iters} and f32 {f32_iters} iterations, against the "
+          f"unsharded solve ({it64} iterations, status {st64}): "
+          + "; ".join(line) + " (both ranks of the 2-rank world share one "
+          "card: no speed-up is expected)", flush=True)
+
+    # ---- 34b-34e on the 2-rank world
+    recs = worlds["2 ranks gloo"]
+    xe = ref_ell.x.double().cpu().numpy()
+    bound_e = 1e-5 * max(1.0, float(np.abs(xe).max()))
+    line = []
+    for r, rec in enumerate(recs):
+        e = rec["ell"]
+        err = float(np.abs(e["x"].astype(np.float64) - xe).max())
+        sizes = {k for k in e["counts"]}
+        check(e["iters"] == ref_ell.iters and e["status"] == ref_ell.status
+              and err <= bound_e,
+              f"34b rank {r}: status {e['status']}, {e['iters']} iterations"
+              f", |x - x_unsharded| {err:.3e} (bound {bound_e:.1e})")
+        check(all(k == "gather" and s in (m_ell, n_ell) for k, s in sizes),
+              f"34b rank {r}: collectives {e['counts']}")
+        line.append(f"rank {r} tiles {e['tiles']}: {e['iters']} iterations"
+                    f" in {e['wall']:.2f} s, |x - x_unsharded|_inf "
+                    f"{err:.2e}{' (bitwise)' if err == 0 else ''}, "
+                    f"collectives {e['counts']}")
+    print(f"phase 34b blocked-ELL sharding, the from-tiles LP n={ell_n} "
+          f"(A {m_ell}x{n_ell} f32 as one BlockedEllOp), pdhg "
+          f"{ell_iters} iterations, 2 gloo ranks on one card, against the "
+          f"unsharded solve ({ref_ell.iters} iterations, {wall_ell:.2f} s):"
+          f" " + "; ".join(line) + " (only (m,) and (n,) gathers: no tile "
+          "moves)", flush=True)
+
+    line = []
+    half = lanes34c // 2
+    for r, rec in enumerate(recs):
+        bt = rec["batch"]
+        mine = halves[r]
+        alone = ref_halves[r]
+        check(np.array_equal(bt["x"][mine], alone.x.cpu().numpy())
+              and np.array_equal(bt["status"][mine],
+                                 alone.status.cpu().numpy())
+              and np.array_equal(bt["iters"][mine],
+                                 alone.iters.cpu().numpy()),
+              f"34c rank {r}: its lanes differ from the unsharded batch of "
+              "the same lanes")
+        x64 = ref_batch.x[mine].cpu().numpy()
+        err = float(np.abs(bt["x"][mine] - x64).max())
+        lane_bound = 1e-3 * (1.0 + float(np.abs(x64).max()))
+        check(np.array_equal(bt["status"], ref_batch.status.cpu().numpy())
+              and np.array_equal(bt["iters"], ref_batch.iters.cpu().numpy())
+              and err <= lane_bound,
+              f"34c rank {r}: statuses, iterations or x (err {err:.3e}, "
+              f"bound {lane_bound:.1e}) differ from the {lanes34c}-lane "
+              "batch")
+        n34, m34 = ref_batch.x.shape[1], ref_batch.y.shape[1]
+        check(bt["counts"] == {("gather", lanes34c * (n34 + m34 + 5)): 1,
+                               ("gather", 2 * lanes34c): 1},
+              f"34c rank {r}: collectives {bt['counts']}")
+        rate = half * iters34c / bt["wall"]
+        line.append(f"rank {r}: lanes {mine.start}-{mine.stop - 1} bitwise "
+                    f"the unsharded batch of those lanes, |x - x_{lanes34c}"
+                    f"|_inf {err:.2e} (lane bound {lane_bound:.1e}), "
+                    f"{bt['wall']:.3f} s, {rate:.0f} lane-iterations/s")
+    print(f"phase 34c batch sharding, 29b's {lanes34c} n={n34c} LPs, "
+          f"{iters34c} iterations at eps_acc 1e-9, batch mesh of 2 gloo "
+          f"ranks: the same statuses and iterations as the unsharded batch "
+          f"({wall_batch:.3f} s, {lanes34c * iters34c / wall_batch:.0f} "
+          f"lane-iterations/s; its halves alone differ from it by "
+          + ", ".join(f"{float((h.x - ref_batch.x[s]).abs().max()):.2e}"
+                      for h, s in zip(ref_halves, halves))
+          + "); " + "; ".join(line) + "; collectives: only "
+          "the two gathers of the results (none inside the loop)",
+          flush=True)
+
+    zr = np.asarray(ref_admm.z)
+    errs = [float(np.abs(rec["admm"]["z"] - zr).max()) for rec in recs]
+    check(max(errs) <= 1e-6 and all(rec["admm"]["rounds"] == admm_rounds
+                                    for rec in recs),
+          f"34d: |z - z_unsharded| {errs}")
+    print(f"phase 34d consensus ADMM, 33's fleet {fleet} in f64, "
+          f"{admm_rounds} rounds on a batch mesh of 2 gloo ranks: |z - "
+          f"z_unsharded|_inf " + ", ".join(f"{e:.2e}" for e in errs)
+          + f"; {recs[0]['admm']['wall']:.2f} s; collectives "
+          f"{recs[0]['admm']['counts']}", flush=True)
+
+    for world, rs in worlds.items():
+        for r, rec in enumerate(rs):
+            check(rec["multihost"] == (len(rs) > 1),
+                  f"34e {world} rank {r}: is_multihost() "
+                  f"{rec['multihost']}")
+    print("phase 34e multihost.init (tcp://127.0.0.1) on every rank: "
+          + "; ".join(f"{world}: backend {rs[0]['backend']}, is_multihost "
+                      f"{[rec['multihost'] for rec in rs]}"
+                      for world, rs in worlds.items())
+          + f"; phase 34 took {time.perf_counter() - t34:.1f} s",
+          flush=True)
+    return counts
+
+
+def native_phase(tt, dev, kernels):
+    """Phase 35: the native C++ engine on the card's host. Kernel B's f64
+    output (its plain version off the card) on phase 2b's exp and pow
+    blocks against the engine's bisection: every block within 1e-9 of the
+    block's norm, except blocks where kernel B's plain version departs
+    from it too (the root finder both share), which must be the same
+    blocks; the golden LP on ``solve_native`` in 160 iterations."""
+    from totsu_tpu_torch import native
+    cp = kernels["cone_proj"]
+    t0 = time.perf_counter()
+    native.load()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(1)
+    exp_np = cone_blocks("exp", 2000, rng)
+    pow_np = np.concatenate([cone_blocks("pow", 500, rng, al)
+                             for al in (0.1, 0.3, 0.5, 0.9)])
+    alphas = (0.1, 0.3, 0.5, 0.9)
+    f64 = torch.float64
+    line = []
+    for kind, blk in (("exp", exp_np), ("pow", pow_np)):
+        xb = torch.tensor(blk, dtype=f64, device=dev)
+        al = (torch.tensor(np.repeat(alphas, 500), dtype=f64, device=dev)
+              if kind == "pow" else 0.0)
+        kern = (cp.cone_proj_cuda if dev.type == "cuda"
+                else cp.cone_proj_plain)(xb, kind, al, False)
+        plain = cp.cone_proj_plain(xb, kind, al, False)
+        t1 = time.perf_counter()
+        nat = (native.proj_exp_native(blk) if kind == "exp"
+               else np.concatenate([native.proj_pow_native(
+                   blk[i * 500:(i + 1) * 500], a)
+                   for i, a in enumerate(alphas)]))
+        nat_ms = 1e3 * (time.perf_counter() - t1)
+        nrm = np.maximum(np.linalg.norm(blk, axis=1), 1e-300)
+        err_k = np.abs(kern.cpu().numpy() - nat).max(1) / nrm
+        err_p = np.abs(plain.cpu().numpy() - nat).max(1) / nrm
+        off_k = set(np.nonzero(err_k > 1e-9)[0].tolist())
+        off_p = set(np.nonzero(err_p > 1e-9)[0].tolist())
+        check(off_k == off_p, f"35 {kind}: blocks past 1e-9 of the native "
+              f"projection: kernel B {sorted(off_k)[:20]}, its plain "
+              f"version {sorted(off_p)[:20]}")
+        kept = err_k[[i for i in range(len(blk)) if i not in off_k]]
+        line.append(f"{kind}: max error / block norm {kept.max():.2e} "
+                    f"(plain {err_p.max():.2e}), blocks where both depart "
+                    f"(the shared root finder's stall) {len(off_k)}, native "
+                    f"{nat_ms:.1f} ms for {len(blk)} blocks")
+    golden = np.array([1.9999994251590176, 2.0000004472430635])
+    x, _, status, iters = native.solve_native(
+        [-1.0, 0.0], [[4.0, -1.0], [-1.0, 4.0], [-1.0, -1.0]],
+        [6.0, 6.0, 1.0], tt.ConeLayout([tt.rpos(3)]),
+        tt.SolverParam(max_iter=100_000))
+    check(iters == 160 and status == tt.SolverStatus.CONVERGED
+          and np.abs(x - golden).max() <= 1e-9,
+          f"35: the golden LP on solve_native: {status}, {iters} "
+          f"iterations, x = {x.tolist()}")
+    print(f"phase 35 native engine (g++ -O3 -march=native, built/loaded in "
+          f"{build_s:.2f} s): kernel B f64 on phase 2b's 2000 exp and 2000 "
+          f"pow blocks against proj_exp_native / proj_pow_native: "
+          + "; ".join(line) + f"; golden LP on solve_native: {iters} "
+          f"iterations, max |x - golden| {np.abs(x - golden).max():.1e}",
+          flush=True)
 
 
 def stop(proc):
@@ -4145,19 +4663,27 @@ def main():
     t29 = time.perf_counter()
     for k, v in batch_phases(tt, dev, kernels).items():
         main_counts[k] += v
+
+    # ---- phase 34: distribution over ranks (each its own process; the
+    # ranks' dual_matvec launches count); phase 35: the native engine
+    t34 = time.perf_counter()
+    for k, v in distribution_phases(tt, dev, kernels).items():
+        main_counts[k] += v
+    native_phase(tt, dev, kernels)
     # kernel J's launches over every path (phase 28a's DPi builds too)
     jacobi_record["launches"] = main_counts["psd_jacobi"]
-    print(f"all phases passed in {time.perf_counter() - t_start:.1f} s "
+    t_end = time.perf_counter()
+    print(f"all phases passed in {t_end - t_start:.1f} s "
           f"(phases 23-26 from {t23 - t_start:.1f} s, phases 27-28 from "
           f"{t27 - t_start:.1f} s: {t29 - t27:.1f} s, phases 29-33 from "
-          f"{t29 - t_start:.1f} s: {time.perf_counter() - t29:.1f} s)",
-          flush=True)
+          f"{t29 - t_start:.1f} s: {t34 - t29:.1f} s, phases 34-35 from "
+          f"{t34 - t_start:.1f} s: {t_end - t34:.1f} s)", flush=True)
 
     primal = cp_main[False]
     record = {"kernels": [
         {"name": "dual_matvec", "route": "cuda",
          "source": "totsu_tpu_torch/csrc/dual_matvec.cu",
-         "replaces": "totsu_tpu/ops/pallas/dual_matvec.py:54",
+         "replaces": "totsu_tpu/ops/pallas/dual_matvec.py:55",
          "launches": main_counts["dual_matvec"],
          "max_abs_err": max(r[0] for r in dm_main.values()),
          "ms": times[str(torch.float32)][0],

@@ -5,8 +5,8 @@ The split problem must match the joint solve (the port's and the JAX
 package's), and the port's z must follow the JAX package's
 ``consensus_admm`` on the same agents: both run the same rounds of the
 same lockstep subsolves, so z agrees to roundoff (1e-8) and the round
-counts are equal. The two ``mesh=`` tests wait for ROADMAP item 14b; a
-``mesh`` raises naming it.
+counts are equal. The two ``mesh=`` tests are in
+``test_torch_admm_mesh.py``; a ``mesh`` that is not a DeviceMesh raises.
 """
 
 import numpy as np
@@ -109,7 +109,7 @@ def test_admm_rounds_per_sync_matches_per_round():
 
 def test_admm_mesh_raises_naming_its_item():
     c, g_all, h_all, c_batch, a_batch, b_batch, rows_per = split_box_lp()
-    with pytest.raises(NotImplementedError, match=r"item 14b\)"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         consensus_admm(c_batch, a_batch, b_batch,
                        tt.ConeLayout([tt.rpos(rows_per)]), mesh=object(),
                        device=CPU)

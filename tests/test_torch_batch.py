@@ -189,23 +189,56 @@ def _raises(fn, item):
 
 
 def test_unported_options_raise_naming_their_item():
+    """kernel='mega' in a batch is item 14c and a batch of structured
+    operators 14d; every name of the distribution layer works, here on a
+    1-rank gloo mesh, and a mesh that is not a DeviceMesh is a
+    TypeError."""
+    import torch.distributed as dist
     from totsu_tpu_torch import parallel
     c, a, b, m = lp_batch(lanes=2)
     lay = tt.ConeLayout([tt.rpos(m)])
     args = (_t(c), _t(a), _t(b), lay)
-    _raises(lambda: solve_batch(*args, mesh=object()), "14b")
-    _raises(lambda: parallel.shard_batch((_t(c),), object()), "14b")
+    p = tt.SolverParam(max_iter=200)
     _raises(lambda: solve_batch(*args, tt.SolverParam(kernel="mega")),
             "14c")
     ell = tt.DiagOp(torch.ones(3, dtype=torch.float64))
     _raises(lambda: solve_batch(_t(c[:, :3]), ell, _t(b[:, :3]),
-                                tt.ConeLayout([tt.rpos(3)])), "14b")
-    for name in ("make_mesh", "local_mesh", "shard_dense_problem",
-                 "shard_blocked_ell_problem"):
-        _raises(lambda: getattr(parallel, name)(), "14b")
-    _raises(lambda: parallel.multihost.init(), "14b")
-    _raises(lambda: tt.solve(_t(c[0]), _t(a[0]), _t(b[0]), lay,
-                             row_sharding=object()), "14b")
+                                tt.ConeLayout([tt.rpos(3)])), "14d")
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        solve_batch(*args, mesh=object())
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        parallel.shard_batch((_t(c),), object())
+    with pytest.raises(RuntimeError, match="multihost.init"):
+        parallel.make_mesh(devices="cpu")
+    assert not parallel.multihost.is_multihost()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        parallel.multihost.init()          # initialized already: a no-op
+        assert not parallel.multihost.is_multihost()
+        mesh = parallel.make_mesh(devices="cpu")
+        assert parallel.local_mesh({"batch": 1}, "cpu").size() == 1
+        with pytest.raises(ValueError, match="needs 2 ranks"):
+            parallel.make_mesh(batch=2, devices="cpu")
+        (cs,) = parallel.shard_batch((_t(c),), mesh)
+        assert torch.equal(cs, _t(c))
+        whole = solve_batch(*args, p)
+        on_mesh = solve_batch(*args, p, mesh=mesh)
+        assert torch.equal(on_mesh.x, whole.x)
+        assert torch.equal(on_mesh.iters, whole.iters)
+        prob = parallel.shard_dense_problem(
+            tt.ConicProblem(_t(c[0]), tt.DenseOp(_t(a[0])), _t(b[0]), lay),
+            mesh)
+        assert torch.equal(prob.solve_jit(p).x,
+                           tt.solve_jit(_t(c[0]), _t(a[0]), _t(b[0]), lay,
+                                        p).x)
+        assert torch.equal(prob.a.to_dense(), _t(a[0]))
+        ell = tt.BlockedEllOp.from_dense(a[0], block=(m, a.shape[2]),
+                                         device="cpu")
+        parallel.shard_blocked_ell_problem(
+            tt.ConicProblem(_t(c[0]), ell, _t(b[0]), lay), mesh)
+    finally:
+        dist.destroy_process_group()
     assert sorted(parallel.__all__) == sorted(
         __import__("totsu_tpu.parallel", fromlist=["x"]).__all__)
 

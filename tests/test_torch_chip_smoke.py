@@ -928,7 +928,7 @@ def test_polish_diff_phases_run_on_the_cpu_at_a_small_size(monkeypatch,
     counts = cs.polish_diff_phases(
         tt, torch.device("cpu"), kernels, lambda: refs, lp_n=60, qp_n=10,
         grid=(3, 2), grid27=(2, 2), box_n=40, ell_n=256, dpi=dpi,
-        prof_steps=5)
+        prof_steps=5, diff_n=60)
     assert counts == {k: 0 for k in kernels}
     out = capsys.readouterr().out
     for phase in ("27a", "27b", "27c", "28a", "28b", "28c", "28d"):
@@ -1029,3 +1029,36 @@ def test_batch_phases_run_on_the_cpu_at_a_small_size(monkeypatch, capsys):
     out = capsys.readouterr().out
     for phase in ("29a", "29b", "29c", "30", "31", "32", "33"):
         assert f"\nphase {phase} " in out
+
+
+def test_distribution_phases_run_on_the_cpu_at_a_small_size(capsys):
+    # phases 34-35's flow (every spawned world, solve, gate and line) at
+    # small sizes on the CPU: the ranks join through gloo on CPU tensors,
+    # and kernel B's plain version stands in for it against the engine
+    import totsu_tpu_torch as tt
+    from totsu_tpu_torch.ops.kernels import dual_matvec as dm
+    from totsu_tpu_torch.ops.kernels import megakernel as mk
+    from totsu_tpu_torch.ops.kernels import psd_jacobi as pj
+    kernels = {"dual_matvec": dm, "megakernel": mk, "cone_proj": cp,
+               "psd_jacobi": pj}
+    cpu = torch.device("cpu")
+    counts = cs.distribution_phases(
+        tt, cpu, kernels, lp_n=20, dense_iters=100, f32_iters=60,
+        ell_n=256, ell_iters=40, n34c=8, lanes34c=4, iters34c=40,
+        fleet=(2, 4, 16), admm_rounds=2, coll_reps=5, timeout=120)
+    assert counts == {k: 0 for k in kernels}
+    cs.native_phase(tt, cpu, kernels)
+    out = capsys.readouterr().out
+    for phase in ("34a", "34b", "34c", "34d", "34e", "35"):
+        assert f"phase {phase} " in out
+    assert "is_multihost [True, True]" in out
+
+
+def test_tiles_box_ell_is_the_tiles_lp_stacked():
+    import totsu_tpu_torch as tt
+    op, b, c = cs.tiles_box_ell(tt, 256, torch.device("cpu"))
+    tiles, b0, c0 = cs.make_tiles_lp(256)
+    np.testing.assert_array_equal(b, b0)
+    np.testing.assert_array_equal(c, c0)
+    want = cs.tiles_box_csr(tiles, 256, 128).toarray()
+    np.testing.assert_array_equal(op.to_dense().numpy(), want)

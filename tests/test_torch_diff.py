@@ -226,7 +226,7 @@ def test_vmapped_batch_gradients():
             lambda b_: sf(_t(c), _t(g), b_), (_t(hb[i]),), (_t(db[i]),))
         np.testing.assert_allclose(dx[i].numpy(), dxi.numpy(), rtol=1e-6,
                                    atol=1e-9)
-    with pytest.raises(NotImplementedError, match=r"item 14b\)"):
+    with pytest.raises(NotImplementedError, match=r"item 14d\)"):
         st(_t(c), tt.DiagOp(torch.ones(3, dtype=torch.float64)),
            _t(hb[:, :3]))
 

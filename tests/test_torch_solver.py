@@ -155,9 +155,11 @@ def test_dual_matvec_counts_only_launches():
     ({}, dict(row_sharding=object())),
 ], ids=["fast_row_sharding", "row_sharding"])
 def test_unported_features_raise(kw, solve_kw):
+    """A row_sharding that is not the port's record (from
+    parallel.shard_dense_problem) is a TypeError, under either profile."""
     c, a, b, m = small_lp(seed=5)
     ct, at, bt = interop.problem_from_numpy(c, a, b, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="RowSharding"):
         tt.solve(ct, at, bt, tt.ConeLayout([tt.rpos(m)]),
                  tt.SolverParam(max_iter=10, **kw), **solve_kw)
 

@@ -45,8 +45,16 @@ direct engine or pdhg), :class:`BatchRunner` (``runtime/batcher.py``,
 bucketed microbatches and an asynchronous ``submit``) and
 :func:`consensus_admm` (``parallel/admm.py``).
 
-Not ported yet (ROADMAP.md): distribution over devices (item 14b) and a
-batched megakernel (item 14c).
+Distribution runs one process per device over ``torch.distributed``
+(``parallel``: ``multihost.init``, ``make_mesh``): a problem's rows split
+over a mesh's ``row`` axis (``shard_dense_problem``,
+``shard_blocked_ell_problem``, with the collectives inside the operator),
+a batch's lanes or ADMM's agents over its ``batch`` axis.
+``totsu_tpu_torch.native`` wraps the C++ reference engine
+(``native/totsu_ref.cpp``) on the host.
+
+Not ported yet (ROADMAP.md): a batched megakernel (item 14c) and batches
+of structured operators (item 14d).
 """
 
 from totsu_tpu_torch.solver.params import SolverParam, SolverStatus, SolverError

@@ -511,7 +511,7 @@ class DifferentiableSolver:
         if not isinstance(a, torch.Tensor):
             raise _not_ported(f"a batch of structured operators "
                               f"({type(a).__name__}) in "
-                              "make_differentiable_solver", "14b")
+                              "make_differentiable_solver", "14d")
         spec = _Spec(self.cone, self.param, self.mode, self.lsqr_iters,
                      self.lsqr_rtol, lambda ls: DenseOp(ls[0]), True,
                      self.stats)

@@ -20,6 +20,11 @@ from the previous round's primal solution. The JAX package runs
 ``rounds_per_sync`` rounds as one jitted ``lax.scan``; here they are a
 host loop whose residuals and statuses stay on the device and reach the
 host in one read per ``rounds_per_sync`` rounds.
+
+With a mesh, each rank runs the subsolves of its share of the agents
+(its place on the ``batch`` axis). The z-update's sum over agents is one
+all_reduce per round; each agent's residual and status stay on its rank
+until the sync, where one gather brings every round's of them.
 """
 
 import dataclasses
@@ -29,10 +34,12 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from totsu_tpu_torch.parallel import _collectives as coll
+from totsu_tpu_torch.parallel.batch import shard_batch
+from totsu_tpu_torch.parallel.sharded import even_split
 from totsu_tpu_torch.solver import cone as cones
 from totsu_tpu_torch.solver.batched import solve_batch_jit
 from totsu_tpu_torch.solver.cone import ConeLayout
-from totsu_tpu_torch.solver.conic import _not_ported
 from totsu_tpu_torch.solver.operator import as_data
 from totsu_tpu_torch.solver.params import SolverParam, SolverStatus
 
@@ -76,7 +83,9 @@ def consensus_admm(
     * ``a_batch``: (N, m, n) per-agent constraint blocks (same shape)
     * ``b_batch``: (N, m); ``cone`` shared across agents. Data that is not
       a tensor goes to ``device``, else to the CUDA card.
-    * ``mesh`` (agents sharded over devices) is ROADMAP item 14b.
+    * ``mesh``: ``parallel.make_mesh``; its ``batch`` axis shards the
+      agents (N must split evenly over it). Every rank passes every
+      agent's data; the result is whole on every rank.
     * ``strict_subsolves``: every sync checks the agents' subsolve
       statuses. ``False`` warns once and counts offending rounds in
       ``AdmmResult.rounds_with_unconverged_subsolves``; ``True`` raises
@@ -87,13 +96,30 @@ def consensus_admm(
       so up to ``rounds_per_sync - 1`` extra rounds may run past the
       tolerance.
     """
-    if mesh is not None:
-        raise _not_ported("consensus_admm(mesh=...)", "14b")
     a_batch = as_data(a_batch, device, "a_batch")
     dev = a_batch.device
     c_batch = as_data(c_batch, dev, "c_batch")
     b_batch = as_data(b_batch, dev, "b_batch")
     n_agents, n = c_batch.shape
+    if mesh is not None:
+        first = even_split(mesh, "batch", n_agents, "agents")[
+            mesh.get_local_rank("batch")]
+        group = mesh.get_group("batch")
+        c_batch, a_batch, b_batch = shard_batch((c_batch, a_batch, b_batch),
+                                                mesh)
+
+    def whole(t, dim=-1):
+        """Every agent's ``t`` from this rank's agents along ``dim``."""
+        if mesh is None:
+            return t
+        return coll.gather(t, first, n_agents, group, dim)
+
+    def agent_mean(t):
+        if mesh is None:
+            return torch.mean(t, dim=0)
+        return coll.reduce_sum(t.sum(dim=0), group) / n_agents
+
+    lanes = c_batch.shape[0]
     m = b_batch.shape[1]
     dtype = c_batch.dtype
     a_batch = a_batch.to(dtype)
@@ -105,15 +131,15 @@ def consensus_admm(
     sub_cone = ConeLayout((cones.rsoc(2 + n),) + tuple(cone.factors))
     eye = torch.eye(n, dtype=dtype, device=dev)
     # the rows that do not move between rounds: 0 | ... | A_i 0
-    conic_a = torch.zeros(n_agents, 2 + n + m, n + 1, dtype=dtype,
+    conic_a = torch.zeros(lanes, 2 + n + m, n + 1, dtype=dtype,
                           device=dev)
     conic_a[:, 1, n] = -1.0
     conic_a[:, 2 + n:, :n] = a_batch
     conic_b = torch.cat([
-        torch.ones(n_agents, 1, dtype=dtype, device=dev),
-        torch.zeros(n_agents, 1 + n, dtype=dtype, device=dev), b_batch],
+        torch.ones(lanes, 1, dtype=dtype, device=dev),
+        torch.zeros(lanes, 1 + n, dtype=dtype, device=dev), b_batch],
         dim=1)
-    conic_c = torch.zeros(n_agents, n + 1, dtype=dtype, device=dev)
+    conic_c = torch.zeros(lanes, n + 1, dtype=dtype, device=dev)
     conic_c[:, n] = 1.0
 
     def solve_agents(v, ws_x, rho_t):
@@ -138,17 +164,17 @@ def consensus_admm(
         res = solve_agents(v, ws_x, rho_t)
         x = res.x[:, :n]
         x_hat = alpha * x + (1.0 - alpha) * z[None, :]
-        z_new = torch.mean(x_hat + u, dim=0)
+        z_new = agent_mean(x_hat + u)
         u_new = u + x_hat - z_new[None, :]
-        pri = torch.linalg.vector_norm(x - z_new[None, :], dim=1).amax()
+        # each agent's primal residual; their maximum is taken at the sync
+        pri = torch.linalg.vector_norm(x - z_new[None, :], dim=1)
         dual = rho_t * torch.linalg.vector_norm(z_new - z)
-        n_bad = (res.status != SolverStatus.CONVERGED).sum()
-        return z_new, u_new, res.x, (pri, dual, n_bad, res.status)
+        return z_new, u_new, res.x, (pri, dual, res.status)
 
     rps = max(1, int(rounds_per_sync))
     z = torch.zeros(n, dtype=dtype, device=dev)
-    u = torch.zeros(n_agents, n, dtype=dtype, device=dev)
-    ws_x = torch.zeros(n_agents, n + 1, dtype=dtype, device=dev)
+    u = torch.zeros(lanes, n, dtype=dtype, device=dev)
+    ws_x = torch.zeros(lanes, n + 1, dtype=dtype, device=dev)
     statuses = None
     pri = dual = np.inf
     k = 0
@@ -161,13 +187,16 @@ def consensus_admm(
             z, u, ws_x, out = one_round(z, u, ws_x, rho_t)
             outs.append(out)
         k += rps_i
-        # one host read per chunk: every round's residuals, counts and
-        # statuses together
-        pris, duals, nbads = (torch.stack([o[i] for o in outs]).tolist()
-                              for i in range(3))
-        stat_all = torch.stack([o[3] for o in outs]).cpu().numpy()
+        # one host read per chunk: every round's residuals and statuses
+        # together (with a mesh, every agent's, in one gather)
+        per_agent = whole(torch.stack([
+            torch.stack([o[0] for o in outs]),
+            torch.stack([o[2] for o in outs]).to(dtype)]))
+        pris = per_agent[0].amax(dim=1).tolist()
+        duals = torch.stack([o[1] for o in outs]).tolist()
+        stat_all = per_agent[1].cpu().numpy().astype(np.int32)
         pri, dual = float(pris[-1]), float(duals[-1])
-        nbads = np.asarray(nbads)
+        nbads = np.count_nonzero(stat_all != SolverStatus.CONVERGED, axis=1)
         statuses = stat_all[-1]
         chunk_bad = int(np.count_nonzero(nbads))
         if chunk_bad:
@@ -204,7 +233,8 @@ def consensus_admm(
                 u = u * 2.0
 
     return AdmmResult(
-        z=z.cpu().numpy(), x=ws_x[:, :n].cpu().numpy(), outer_iters=k,
+        z=z.cpu().numpy(), x=whole(ws_x[:, :n], dim=0).cpu().numpy(),
+        outer_iters=k,
         pri_res=pri, dual_res=dual,
         converged=(pri <= tol and dual <= tol),
         subproblem_statuses=np.asarray(statuses),

@@ -1,6 +1,7 @@
 """ConicProblem: the solver-form problem record produced by all reductions."""
 
 import dataclasses
+from typing import Any
 
 import numpy as np
 import torch
@@ -18,11 +19,17 @@ class ConicProblem:
     The common output of every Prob* reduction (the analogue of the
     reference's ``problem()`` tuples, e.g. qp.rs:402-436); ``c``, ``b`` and
     the operator's data are tensors on one device.
+
+    ``row_sharding`` (set by
+    :func:`totsu_tpu_torch.parallel.shard_dense_problem` and
+    ``shard_blocked_ell_problem``) is the split of A's rows over a mesh;
+    the solve checks that the operator carries the same one.
     """
     c: torch.Tensor
     a: LinOp
     b: torch.Tensor
     cone: ConeLayout
+    row_sharding: Any = None
 
     @property
     def shape(self):
@@ -32,13 +39,14 @@ class ConicProblem:
               warm_start=None) -> SolveResult:
         """Solve; raises SolverError on non-convergence."""
         return solve(self.c, self.a, self.b, self.cone, param,
-                     warm_start=warm_start)
+                     warm_start=warm_start, row_sharding=self.row_sharding)
 
     def solve_jit(self, param: SolverParam = SolverParam(),
                   warm_start=None) -> SolveResult:
         """Solve; returns a status code, never raises on non-convergence."""
         return solve_jit(self.c, self.a, self.b, self.cone, param,
-                         warm_start=warm_start)
+                         warm_start=warm_start,
+                         row_sharding=self.row_sharding)
 
 
 def _device_of(device, *inputs) -> torch.device:

@@ -55,20 +55,29 @@ _RUNNING = int(SolverStatus.RUNNING)
 _EXCESS = int(SolverStatus.EXCESS_ITER)
 
 
-def as_batched_op(a, device=None) -> BatchedDenseOp:
-    """A (B, m, n) tensor or array, or a :class:`BatchedDenseOp`, as the
+def as_batched_op(a, device=None) -> LinOp:
+    """A (B, m, n) tensor or array, or a :class:`BatchedDenseOp` (or one
+    row-sharded over a mesh, ``parallel.sharded.RowShardedOp``), as the
     batch's operator. A structured operator with a leading batch (the JAX
     package vmaps any LinOp pytree) raises, naming its ROADMAP item."""
-    if isinstance(a, BatchedDenseOp):
+    if isinstance(a, BatchedDenseOp) or _sharded(a):
         return a
     if isinstance(a, LinOp):
         raise _not_ported(f"a batch of structured operators "
-                          f"({type(a).__name__})", "14b")
+                          f"({type(a).__name__})", "14d")
     a = as_data(a, device, "A")
     if a.dim() != 3:
         raise ValueError(f"a batch needs A as (B, m, n), got "
                          f"{tuple(a.shape)}")
     return BatchedDenseOp(a)
+
+
+def _sharded(a) -> bool:
+    """Whether ``a`` is a batch whose rows are split over a mesh: its
+    products run collectives."""
+    from totsu_tpu_torch.parallel.sharded import RowShardedOp
+    return isinstance(a, RowShardedOp) \
+        and isinstance(a.local, BatchedDenseOp)
 
 
 def _vdot(x, y):
@@ -659,7 +668,9 @@ def _solve_pdhg(c, a_op, b, cone, param, warm_start, resume_state):
     u, v, k, status, crits, aux = _LOOPS[param.accel](
         update, check, u0, v0, k_start, cap, status, crits,
         check_period, lay, aux=resume_aux, log_period=param.log_period,
-        graph=_graphable(cone, device))
+        # a row-sharded A's collectives are counted on the host, and
+        # gloo's cannot be captured: its batch stays eager
+        graph=_graphable(cone, device) and not _sharded(a_op))
     ux, uy, _, tau = lay.u(u)
     x, y = _scale_back(ux, uy, tau, eps_zero, sb, sc, equil_d, equil_e)
     return _result(x, y, k, k_start, status, crits,
@@ -913,7 +924,9 @@ def solve_batch_jit(c, a, b, cone: ConeLayout,
     """The lockstep solve of B lanes, each ``solve_jit`` of its own
     (c, A, b): ``c`` (B, n), ``a`` (B, m, n) (a tensor, array or
     :class:`BatchedDenseOp`; an A expanded from one matrix is not
-    copied), ``b`` (B, m); the layout and the parameters are shared.
+    copied; or one whose rows are split over a mesh's ``row`` axis, from
+    ``parallel.solve_batch(mesh=)``), ``b`` (B, m); the layout and the
+    parameters are shared.
     ``warm_start`` is (X (B, n) or None, Y (B, m) or None); a zero seed
     runs the seeded start (the slack seeded at Pi_K(b) and a check at the
     seed), as in the JAX package. Never raises on non-convergence: the
@@ -932,8 +945,10 @@ def solve_batch_jit(c, a, b, cone: ConeLayout,
     with full_f32_matmul():
         a_op = as_batched_op(a, device)
         cone = resolve_auto_methods(cone, param)
+        row_sharding = a_op.sharding if _sharded(a_op) else None
         if param.profile == "fast":
-            param = _resolve_fast_profile(param, a_op.lane(0), cone)
+            param = _resolve_fast_profile(param, a_op.lane(0), cone,
+                                          row_sharding)
         elif param.profile != "reference":
             raise ValueError(f"unknown profile {param.profile!r}")
         if param.method not in ("pdhg", "direct"):
@@ -950,6 +965,11 @@ def solve_batch_jit(c, a, b, cone: ConeLayout,
         if param.method == "direct":
             if param.matvec_dtype is not None:
                 raise ValueError("matvec_dtype is a pdhg-engine feature")
+            if row_sharding is not None:
+                raise ValueError(
+                    "method='direct' does not honor a row-sharded batch "
+                    "(mesh constraints are a pdhg-engine feature); use "
+                    "method='pdhg', or a mesh with row=1")
             return _solve_direct(c, a_op, b, cone, param, warm_start,
                                  resume_state)
         return _solve_pdhg(c, a_op, b, cone, param, warm_start,

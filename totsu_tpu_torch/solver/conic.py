@@ -516,16 +516,26 @@ def run_loop(update, check, u0, v0, *, cap: int, check_period: int,
                check_period, aux=aux, log_period=log_period)
 
 
-def _check_supported(param: SolverParam, row_sharding):
-    """Raise for every feature of the JAX solve_jit the port does not
-    have yet, naming its ROADMAP item; never fall back silently. Runs
-    after the fast profile is resolved."""
+def _check_supported(param: SolverParam, row_sharding, a_op: LinOp):
+    """Raise for an unknown method or accel, and for a ``row_sharding``
+    that is not the port's record (``TypeError``) or that A does not
+    carry (``ValueError``: A must be the sharded operator of
+    ``parallel.shard_dense_problem`` or ``shard_blocked_ell_problem``
+    over the same split). Runs after the fast profile is resolved."""
     if param.method not in ("pdhg", "direct"):
         raise ValueError(f"unknown method {param.method!r}")
     if param.accel not in ("", "halpern", "restart"):
         raise ValueError(f"unknown accel {param.accel!r}")
     if row_sharding is not None:
-        raise _not_ported("row_sharding", "14b")
+        from totsu_tpu_torch.parallel.sharded import RowSharding
+        if not isinstance(row_sharding, RowSharding):
+            raise TypeError(f"row_sharding must be a parallel.RowSharding "
+                            f"(from shard_dense_problem), got "
+                            f"{type(row_sharding).__name__}")
+        if getattr(a_op, "sharding", None) != row_sharding:
+            raise ValueError("row_sharding: A is not sharded over this split "
+                             "(pass the problem that shard_dense_problem or "
+                             "shard_blocked_ell_problem returned)")
 
 
 def _on_card(a_op: LinOp) -> bool:
@@ -662,7 +672,7 @@ def _solve_jit(c, a, b, cone, param, warm_start, resume_state, row_sharding,
                 "method='direct' does not honor row_sharding (mesh "
                 "constraints are a pdhg-engine feature); use "
                 "method='pdhg', or drop the sharding")
-    _check_supported(param, row_sharding)
+    _check_supported(param, row_sharding, a_op)
     device = a_op.device
     c = _as_tensor(c, device)
     b = _as_tensor(b, device)
