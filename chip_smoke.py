@@ -31,8 +31,13 @@ lockstep batches (phases 29-33: bench.py's batch cells, 8 and 64 n=100
 LPs, 32 growth portfolios with kernel B taking every lane's exp and pow
 blocks in one launch, chunking, 512 nearest-correlation SDPs with kernel
 J taking every lane's PSD block in one launch, each held against single
-solves; BatchRunner's MPC fleet and a burst of 256 requests through
+solves; BatchRunner's MPC fleet and a burst of 128 requests through
 submit; consensus ADMM against the joint LP and the trajectory sweep);
+the batched megakernel (phase 36: batch64 and batch8 and the 32 growth
+portfolios in one launch each, lanes bitwise their one-lane launches,
+512 QPs past one resident wave, profile='fast' and a BatchRunner burst
+on kernel='auto'); each example's main on the card (phase 37, the
+examples' own builders, which the other phases import too);
 distribution (phase 34: ranks spawned as processes that join through
 multihost.init, the n=1000 LP row-sharded on a 1-rank NCCL world and on
 2 gloo ranks sharing the card, kernel 1 on each rank's rows, the
@@ -66,6 +71,17 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
+
+# the examples' own builders: the smoke solves the same instances
+from examples_torch import (growthport_powexp,  # noqa: E402
+                            nearestcorr_batch_sdp, toruscompl_socp,
+                            trajplan_qcqp)
+from examples_torch.growthport_powexp import make_growth  # noqa: E402
+from examples_torch.logreg_expcone import make_logreg  # noqa: E402
+from examples_torch.nearestcorr_batch_sdp import (  # noqa: E402
+    make_noisy_covs)
+from examples_torch.partitioning_sdp import (  # noqa: E402
+    grid_weights, make_partitioning, pack_index, packed_matrix)
 
 # Every solver-path product in full f32: no TF32 anywhere.
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -315,45 +331,6 @@ def make_stencil_lp(tt, n, device, seed=1, adjoint=True):
     return c, op, b
 
 
-def make_logreg(m, n, lam=0.1, seed=3):
-    """examples/logreg_expcone.py: its data generator and ``build``, in
-    numpy. L1-regularised logistic regression over m samples and n
-    features; variables z = [w (n) | t (m) | u (m) | v (m) | a (n)], each
-    softplus epigraph two exp blocks (z_i - t_i, 1, u_i), (-t_i, 1, v_i)
-    and a budget row u_i + v_i <= 1, |w_j| <= a_j as two R+ rows.
-    Returns (x, y, c, A, b, cone spec)."""
-    rng = np.random.default_rng(seed)
-    w_true = np.concatenate([rng.normal(size=n // 2) * 2.0,
-                             np.zeros(n - n // 2)])
-    x = rng.normal(size=(m, n))
-    y = np.where(x @ w_true + 0.3 * rng.normal(size=m) > 0, 1.0, -1.0)
-    nv = 2 * n + 3 * m
-    it, iu, iv = n + np.arange(m), n + m + np.arange(m), n + 2 * m + np.arange(m)
-    iw, ia = np.arange(n), n + 3 * m + np.arange(n)
-    a = np.zeros((m + 2 * n + 6 * m, nv))
-    b = np.zeros(m + 2 * n + 6 * m)
-    rows = np.arange(m)
-    a[rows, iu] = 1.0                         # 1 - u_i - v_i >= 0
-    a[rows, iv] = 1.0
-    b[:m] = 1.0
-    rj = m + 2 * np.arange(n)
-    a[rj, ia], a[rj, iw] = -1.0, 1.0          # a_j - w_j >= 0
-    a[rj + 1, ia], a[rj + 1, iw] = -1.0, -1.0  # a_j + w_j >= 0
-    e0 = m + 2 * n + 3 * rows                 # (z_i - t_i, 1, u_i)
-    a[e0, :n] = y[:, None] * x
-    a[e0, it] = 1.0
-    b[e0 + 1] = 1.0
-    a[e0 + 2, iu] = -1.0
-    e1 = m + 2 * n + 3 * m + 3 * rows         # (-t_i, 1, v_i)
-    a[e1, it] = 1.0
-    b[e1 + 1] = 1.0
-    a[e1 + 2, iv] = -1.0
-    c = np.zeros(nv)
-    c[n:n + m] = 1.0
-    c[n + 3 * m:] = lam
-    return x, y, c, a, b, [("rpos", (m + 2 * n,)), ("expc", (2 * m,))]
-
-
 def logreg_objective(x, y, w, lam):
     return float(np.sum(np.logaddexp(0.0, -y * (x @ w)))
                  + lam * np.abs(w).sum())
@@ -426,119 +403,10 @@ def gp_reference(term_c, term_a):
     return float(np.exp(r.fun))
 
 
-def make_growth(s_num=64, n=50, h_budget=-2.0, seed=0):
-    """examples/growthport_powexp.py: its data generator and
-    ``build_problem``, in numpy. Growth-optimal allocation over s_num
-    scenarios and n assets: the geometric mean as a binary tree of
-    pow(1/2) blocks, the entropy budget sum x log x <= H as n exp blocks.
-    Returns (returns, c, A, b, cone spec, index of the tree root)."""
-    rng = np.random.default_rng(seed)
-    returns = 1.0 + 0.3 * rng.standard_normal((s_num, n)) ** 2 \
-        - 0.1 * rng.random((s_num, n))
-    nv = 2 * n + s_num - 1    # x (n) | q (n) | tree nodes, root last
-    rows, bs = [], []
-
-    def row(coeffs, bval):
-        r = np.zeros(nv)
-        for idx, v in coeffs:
-            r[idx] = v
-        rows.append(r)
-        bs.append(bval)
-
-    row([(j, 1.0) for j in range(n)], 1.0)          # zero: sum x = 1
-    for j in range(n):
-        row([(j, -1.0)], 0.0)                       # R+: x >= 0
-    row([(n + j, 1.0) for j in range(n)], h_budget)  # R+: H - sum q >= 0
-    leaves = [("ret", i) for i in range(s_num)]
-    k = 0
-    while len(leaves) > 1:
-        nxt = []
-        for pair in zip(leaves[0::2], leaves[1::2]):
-            for kind, idx in pair:
-                if kind == "ret":
-                    row([(j, -returns[idx, j]) for j in range(n)], 0.0)
-                else:
-                    row([(2 * n + idx, -1.0)], 0.0)
-            row([(2 * n + k, -1.0)], 0.0)
-            nxt.append(("node", k))
-            k += 1
-        leaves = nxt
-    for j in range(n):                              # (-q_j, x_j, 1) in K_exp
-        row([(n + j, 1.0)], 0.0)
-        row([(j, -1.0)], 0.0)
-        row([], 1.0)
-    c = np.zeros(nv)
-    c[2 * n + k - 1] = -1.0   # maximise the root = the geometric mean
-    spec = [("zero", (1,)), ("rpos", (n + 1,)), ("powc", (0.5, k)),
-            ("expc", (n,))]
-    return returns, c, np.asarray(rows), np.asarray(bs), spec, 2 * n + k - 1
-
-
 def growth_reference(returns, h_budget):
-    """examples/growthport_powexp.py's oracle: SLSQP on the log-form NLP;
-    returns the optimal geometric mean."""
-    from scipy.optimize import minimize
-    n = returns.shape[1]
-    cons = [
-        {"type": "eq", "fun": lambda x: x.sum() - 1.0},
-        {"type": "ineq",
-         "fun": lambda x: h_budget - np.sum(x * np.log(np.maximum(x, 1e-12)))},
-    ]
-    r = minimize(lambda x: -np.mean(np.log(returns @ x)), np.full(n, 1.0 / n),
-                 method="SLSQP", bounds=[(0.0, 1.0)] * n, constraints=cons,
-                 options={"maxiter": 500, "ftol": 1e-12})
-    return float(np.exp(-r.fun))
-
-
-def pack_index(k):
-    """Row and column of each packed entry, column-major upper triangle
-    (``ops/sympack.py`` ``_pack_index``)."""
-    cc, rr = np.triu_indices(k)[::-1]
-    order = np.lexsort((rr, cc))
-    return rr[order], cc[order]
-
-
-def packed_matrix(x, k):
-    """The symmetric matrix of a plainly packed vector (the partitioning
-    example's ``_unpack``)."""
-    rr, cc = pack_index(k)
-    m = np.zeros((k, k))
-    m[rr, cc] = x
-    m[cc, rr] = x
-    return m
-
-
-def grid_weights(x_num, y_num, rng):
-    """A grid graph's N(0, 1) edge weights W (examples/partitioning_sdp.py
-    build, :21-32; benchmarks/benchmark_sdp.py build_partitioning,
-    :76-84)."""
-    l = x_num * y_num
-    w = np.zeros((l, l))
-    for i in range(l):
-        x, y = divmod(i, y_num)
-        if x < x_num - 1:
-            w[i, i + y_num] = w[i + y_num, i] = rng.standard_normal()
-        if y < y_num - 1:
-            w[i, i + 1] = w[i + 1, i] = rng.standard_normal()
-    return w
-
-
-def make_partitioning(x_num=8, y_num=6, seed=10_000):
-    """The reference's partitioning SDP as ``problems.sdp`` data
-    (examples/partitioning_sdp.py build :21-32 and solve_sdp :35-65): min
-    <W, X> over the packed X, F_kk = -E_ij for each packed slot (X >= 0),
-    diag(X) = 1. Returns (w, c, f_mats, a, b)."""
-    w = grid_weights(x_num, y_num, np.random.default_rng(seed))
-    l = w.shape[0]
-    sn = l * (l + 1) // 2
-    rr, cc = pack_index(l)
-    c = w[rr, cc]
-    f_mats = np.zeros((sn + 1, l, l))
-    f_mats[np.arange(sn), rr, cc] = -1.0
-    f_mats[np.arange(sn), cc, rr] = -1.0
-    a = np.zeros((l, sn))
-    a[np.arange(l), np.nonzero(rr == cc)[0]] = 1.0
-    return w, c, f_mats, a, np.ones(l)
+    """examples/growthport_powexp.py's oracle (SLSQP on the log-form
+    NLP): the optimal geometric mean."""
+    return float(growthport_powexp.scipy_oracle(returns, h_budget)[0])
 
 
 def make_partitioning_structured(l, seed=10_000):
@@ -560,164 +428,36 @@ def make_partitioning_structured(l, seed=10_000):
     return w, w[rr, cc].astype(np.float32), -dscale, sel, b
 
 
-def make_noisy_covs(batch, k, seed=5):
-    """examples/nearestcorr_batch_sdp.py make_noisy_covs (:39-50): noisy
-    correlation estimates, possibly indefinite."""
-    rng = np.random.default_rng(seed)
-    out = []
-    for _ in range(batch):
-        f = rng.normal(size=(k, 3)) / np.sqrt(3)
-        s = f @ f.T + 0.3 * np.diag(rng.random(k))
-        d = 1.0 / np.sqrt(np.diag(s))
-        corr = d[:, None] * s * d[None, :]
-        e = rng.normal(size=(k, k)) * 0.15
-        out.append(corr + (e + e.T) / 2)
-    return np.stack(out)
-
-
 def nearestcorr_data(k):
-    """examples/nearestcorr_batch_sdp.py build (:53-84) without its
-    layout: over u = (packed scaled X, t), min t subject to (t, x -
+    """examples/nearestcorr_batch_sdp.py build (:53-84) in numpy, without
+    its layout: over u = (packed scaled X, t), min t subject to (t, x -
     vec(S)) in SOC, x in vec(PSD_k), diag(X) = 1. Returns (a, c, sn); the
     layout is SOC(1 + sn), PSD(k), zero(k)."""
-    sn = k * (k + 1) // 2
-    a = np.zeros((1 + 2 * sn + k, sn + 1))
-    a[0, sn] = -1.0
-    a[1:1 + sn, :sn] = -np.eye(sn)
-    a[1 + sn:1 + 2 * sn, :sn] = -np.eye(sn)
-    diag_pos = np.array([j * (j + 1) // 2 + j for j in range(k)])
-    a[1 + 2 * sn + np.arange(k), diag_pos] = 1.0
-    c = np.zeros(sn + 1)
-    c[sn] = 1.0
-    return a, c, sn
+    a, c, _, _, sn = nearestcorr_batch_sdp.build(k, torch.float64, "cpu")
+    return a.numpy(), c.numpy(), sn
 
 
 def nearestcorr_b(s_mat):
-    """b of one instance (the example's solve_one, :101-105): [0; -vec(S)
-    scaled; 0; 1]."""
+    """b of one instance (the example's ``lane_b``): [0; -vec(S) scaled;
+    0; 1]."""
     k = s_mat.shape[0]
-    rr, cc = pack_index(k)
-    vec_s = s_mat[rr, cc] * np.where(rr == cc, 1.0, np.sqrt(2.0))
-    return np.concatenate([[0.0], -vec_s, np.zeros(len(rr)), np.ones(k)])
+    sn = k * (k + 1) // 2
+    return nearestcorr_batch_sdp.lane_b(s_mat, k, sn, torch.float64,
+                                        "cpu").numpy()
 
 
 def make_trajplan(t_cap=30, a_cap=90.0):
     """examples/trajplan_qcqp.py build (:22-83): P0..Pm, q, r, A, b of the
     2-D trajectory QCQP (minimum squared velocity, |acceleration| <=
     a_cap, pinned ends and two waypoints)."""
-    n = 2 * t_cap
-    dt = 1.0 / t_cap
-    d1 = np.zeros((n, n))
-    for i in range(t_cap - 1):
-        for off in (0, t_cap):
-            d1[off + i, off + i] = -1.0 / dt
-            d1[off + i, off + i + 1] = 1.0 / dt
-    p_mats, q_vecs, r_scls = [d1.T @ d1], [np.zeros(n)], [0.0]
-    dtdt = dt * dt
-    for i in range(t_cap - 2):
-        d2 = np.zeros((n, n))
-        for off in (0, t_cap):
-            d2[off + i, off + i] = 1.0 / dtdt
-            d2[off + i, off + i + 1] = -2.0 / dtdt
-            d2[off + i, off + i + 2] = 1.0 / dtdt
-        p_mats.append(d2.T @ d2)
-        q_vecs.append(np.zeros(n))
-        r_scls.append(-0.5 * a_cap * a_cap)
-    x_s, x_m1, x_m2, x_t = (0.0, 0.0), (0.5, -1.5), (0.25, 1.5), (1.0, 1.0)
-    a = np.zeros((12, n))
-    b = np.zeros(12)
-    a[0, 0], b[0] = 1.0, x_s[0]
-    a[1, t_cap], b[1] = 1.0, x_s[1]
-    a[2, 0], a[2, 1] = -1.0, 1.0
-    a[3, t_cap], a[3, t_cap + 1] = -1.0, 1.0
-    a[4, t_cap - 1], b[4] = 1.0, x_t[0]
-    a[5, 2 * t_cap - 1], b[5] = 1.0, x_t[1]
-    a[6, t_cap - 2], a[6, t_cap - 1] = -1.0, 1.0
-    a[7, 2 * t_cap - 2], a[7, 2 * t_cap - 1] = -1.0, 1.0
-    t_m1, t_m2 = t_cap // 3, 2 * t_cap // 3
-    a[8, t_m1], b[8] = 1.0, x_m1[0]
-    a[9, t_cap + t_m1], b[9] = 1.0, x_m1[1]
-    a[10, t_m2], b[10] = 1.0, x_m2[0]
-    a[11, t_cap + t_m2], b[11] = 1.0, x_m2[1]
-    return np.stack(p_mats), np.stack(q_vecs), np.array(r_scls), a, b
+    return trajplan_qcqp.build(t_cap, a_cap)[:5]
 
 
 def make_torus(x_num=9, y_num=7, vol_ratio=0.2):
     """examples/toruscompl_socp.py build (:19-127): the truss compliance
     SOCP on a torus grid. Returns (f, g_list, h_list, c_list, d_list, a,
     b, l, vlen)."""
-    coords = [(x, y) for x in range(x_num) for y in range(y_num)]
-    nodeidx = {c: i for i, c in enumerate(coords)}
-    members = []
-    for hx in range(x_num):
-        for hy in range(y_num):
-            if hx % 2 == 1 and hy % 2 == 0:
-                dxdy = [(1, 0), (0, 1), (1, 1), (-1, 1), (1, -1), (-1, -1)]
-            else:
-                dxdy = [(1, 0), (0, 1)]
-            for dx, dy in dxdy:
-                t = (hx + dx, hy + dy)
-                if t in nodeidx:
-                    members.append((nodeidx[(hx, hy)], nodeidx[t]))
-    fixed = {nodeidx[(0, y)] for y in range(y_num)}
-    loads = {nodeidx[(x_num - 1, y_num // 2)]: (0.0, -1.0)}
-    dof_idx, dof = {}, 0
-    for i in range(len(coords)):
-        if i in fixed:
-            dof_idx[i] = None
-        else:
-            dof_idx[i] = dof
-            dof += 2
-    l = len(members)
-    n = 3 * l
-    vlen = np.array([np.hypot(coords[h][0] - coords[t][0],
-                              coords[h][1] - coords[t][1])
-                     for h, t in members])
-    f = np.zeros(n)
-    f[2 * l:] = 1.0
-    g_list, h_list, c_list, d_list = [], [], [], []
-    for i in range(l):
-        gi = np.zeros((2, n))
-        gi[0, i] = -1.0
-        gi[0, 2 * l + i] = 1.0
-        gi[1, l + i] = np.sqrt(2.0 * vlen[i])
-        ci = np.zeros(n)
-        ci[i] = ci[2 * l + i] = 1.0
-        g_list.append(gi)
-        h_list.append(np.zeros(2))
-        c_list.append(ci)
-        d_list.append(0.0)
-    for sign, d in ((1.0, 0.0), (-1.0, 1.0)):  # 0 <= x_i, x_i <= 1
-        for i in range(l):
-            ci = np.zeros(n)
-            ci[i] = sign
-            g_list.append(np.zeros((0, n)))
-            h_list.append(np.zeros(0))
-            c_list.append(ci)
-            d_list.append(d)
-    ci = np.zeros(n)
-    ci[:l] = -vlen
-    g_list.append(np.zeros((0, n)))
-    h_list.append(np.zeros(0))
-    c_list.append(ci)
-    d_list.append(float(vlen.sum() * vol_ratio))
-    a = np.zeros((dof, n))
-    b = np.zeros(dof)
-    for i, (hidx, tidx) in enumerate(members):
-        beta = np.array([coords[tidx][0] - coords[hidx][0],
-                         coords[tidx][1] - coords[hidx][1]], dtype=float)
-        beta /= np.linalg.norm(beta)
-        if dof_idx[hidx] is not None:
-            a[dof_idx[hidx], l + i] += -beta[0]
-            a[dof_idx[hidx] + 1, l + i] += -beta[1]
-        if dof_idx[tidx] is not None:
-            a[dof_idx[tidx], l + i] += beta[0]
-            a[dof_idx[tidx] + 1, l + i] += beta[1]
-    for node, (px, py) in loads.items():
-        if dof_idx[node] is not None:
-            b[dof_idx[node]] = px
-            b[dof_idx[node] + 1] = py
-    return f, g_list, h_list, c_list, d_list, a, b, l, vlen
+    return toruscompl_socp.build(x_num, y_num, vol_ratio)[:9]
 
 
 def cone(tt, spec):
@@ -962,6 +702,24 @@ def profile_loop(fn, iters):
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:4]
     return (1e6 * wall / iters, busy / iters, count / iters,
             [(e.key[:40], e.self_device_time_total / iters) for e in top])
+
+
+class BatchLaunches:
+    """The batched megakernel's launch count (``megakernel.batch_launches``)
+    read and reset as ``launches``, as every kernel's count is here: the
+    single solve's launches (``megakernel.launches``) and the batch's are
+    counted apart."""
+
+    def __init__(self, mk):
+        self.mk = mk
+
+    @property
+    def launches(self):
+        return self.mk.batch_launches
+
+    @launches.setter
+    def launches(self, value):
+        self.mk.batch_launches = value
 
 
 def drive(paths, kernels, spans=None):
@@ -2634,13 +2392,17 @@ def halpern_updates(iters, check_period):
 
 def batch_phases(tt, dev, kernels, n29=100, lanes29=8, lanes29b=64,
                  iters29b=8000, lanes29c=32, growth=(64, 50),
-                 cov31=(512, 8), singles31=16, mpc=None, burst=256,
-                 fleet=(8, 64, 192), admm_outer=8, sweep=None):
+                 cov31=(512, 8), singles31=16, mpc=None, burst=128,
+                 fleet=(8, 64, 192), admm_outer=8, sweep=None,
+                 chunk_cap30=20_000,
+                 kept=None):
     """Phases 29-33: lockstep batches on the card (``solve_batch``,
     ``BatchRunner``, ``consensus_admm`` and the batch examples; the sizes
     are arguments only so that the flow can be rehearsed small). Each
-    path is driven once, its launch counts set to 0 just before it.
-    Returns the kernels' launch counts over these paths."""
+    path is driven once, its launch counts set to 0 just before it; all
+    of them keep the lockstep host loop (``kernel=''``). Returns the
+    kernels' launch counts over these paths; ``kept`` (a dict) receives
+    29a-29c's inputs and results for phase 36."""
     from examples_torch import mpc_qp
     from examples_torch import nearestcorr_batch_sdp as nc
     from examples_torch import trajsweep_batch
@@ -2801,21 +2563,37 @@ def batch_phases(tt, dev, kernels, n29=100, lanes29=8, lanes29b=64,
           f"{lanes29c * g_n} exp); a repeat bitwise equal; against single "
           f"solves: {fmt_lanes(rowsg)}", flush=True)
     print(f"phase 29 took {time.perf_counter() - t29:.1f} s", flush=True)
+    if kept is not None:
+        kept.update({
+            "29a": (c29, a29, b29, lay29, p29, r29, wall29),
+            "29b": (c64, a64, b64, lay29, p64, r64, rate64),
+            "29c": (cg, ag, bg, gr_cone, pg, rg)})
 
-    # ---- phase 30: chunking. 29a's batch in chunks of 200 equals the
-    # whole batch bitwise; a capped batch leaves every lane EXCESS_ITER
+    # ---- phase 30: chunking. 29a's batch capped at chunk_cap30
+    # iterations in chunks of 200: each lane that 29a converged within the
+    # cap is bitwise 29a's, every other lane stops EXCESS_ITER at the cap
+    # (29a's slowest lane, some 86,000 lockstep iterations, is not run
+    # again); a capped batch leaves every lane EXCESS_ITER
     t30 = time.perf_counter()
-    ch30 = tt.solve_batch(c29, a29, b29, lay29, p29, chunk_iters=200)
-    check(same_batch(r29, ch30), f"30: chunked batch differs (iterations "
-          f"{ch30.iters.tolist()} vs {r29.iters.tolist()})")
+    ch30 = tt.solve_batch(c29, a29, b29, lay29, dataclasses.replace(
+        p29, max_iter=chunk_cap30), chunk_iters=200)
+    done = r29.iters <= chunk_cap30
+    check(bool(torch.equal(ch30.status[done], r29.status[done])
+               and torch.equal(ch30.iters[done], r29.iters[done])
+               and torch.equal(ch30.x[done], r29.x[done])
+               and (ch30.status[~done] == 2).all()
+               and (ch30.iters[~done] == chunk_cap30).all()),
+          f"30: chunked batch differs (iterations {ch30.iters.tolist()} vs "
+          f"{r29.iters.tolist()}, cap {chunk_cap30})")
     cap30 = tt.solve_batch(c29, a29, b29, lay29, dataclasses.replace(
         p29, max_iter=100, eps_acc=1e-12))
     check(bool((cap30.iters == 100).all() and (cap30.status == 2).all()),
           f"30: capped batch {cap30.status.tolist()} "
           f"{cap30.iters.tolist()}")
-    print(f"phase 30 chunking: 29a's batch in chunks of 200 bitwise equal "
-          f"to the whole (iterations {it29}; this is 29a's repeat); "
-          f"max_iter=100: every lane "
+    print(f"phase 30 chunking: 29a's batch capped at {chunk_cap30} in "
+          f"chunks of 200: {int(done.sum())} lanes bitwise 29a's (iterations "
+          f"{r29.iters[done].tolist()}), {int((~done).sum())} EXCESS_ITER at "
+          f"the cap; max_iter=100: every lane "
           f"EXCESS_ITER at 100; {time.perf_counter() - t30:.1f} s",
           flush=True)
 
@@ -2866,7 +2644,7 @@ def batch_phases(tt, dev, kernels, n29=100, lanes29=8, lanes29b=64,
           flush=True)
 
     # ---- phase 32: BatchRunner. The MPC fleet at the example's defaults
-    # (warm and cold), then a burst of 256 tick QPs through submit
+    # (warm and cold), then a burst of 128 tick QPs through submit
     t32 = time.perf_counter()
     mpc_kw = dict(mpc or {})
     try:
@@ -2974,6 +2752,354 @@ def batch_phases(tt, dev, kernels, n29=100, lanes29=8, lanes29b=64,
 
 # ---- phases 34-35: distribution over torch.distributed ranks and the
 # native engine
+
+class RunnerRun:
+    """A list of single results (``BatchRunner.map``) as ``drive`` prints
+    it, with the list itself in ``res``."""
+
+    def __init__(self, results):
+        self.res = results
+        st = [r.status for r in results]
+        it = [r.iters for r in results]
+        self.status = " ".join(f"{s} x{st.count(s)}" for s in sorted(set(st)))
+        self.iters = f"{int(np.median(it))}/{max(it)}"
+
+
+def _lane_args(args, i):
+    """Lane ``i`` of the batched megakernel's positional inputs, each a
+    one-lane batch (tuples of tensors sliced member by member)."""
+    def one(x):
+        if isinstance(x, tuple):
+            return tuple(one(t) for t in x)
+        return x[i:i + 1] if isinstance(x, torch.Tensor) else x
+    return tuple(one(x) for x in args)
+
+
+def _lane_kwargs(kwargs, i):
+    return {k: (v[i:i + 1] if isinstance(v, torch.Tensor) else v)
+            for k, v in kwargs.items()}
+
+
+def _same_or(x, y, err):
+    """'bitwise' when x equals y bit for bit, else the error."""
+    return "bitwise" if torch.equal(x, y) else f"{err:.1e}"
+
+
+def _x_over_tau(out):
+    """x / tau of each lane of a batched megakernel result."""
+    return out[0][0] / out[0][3][:, None]
+
+
+def batch_mega_phases(tt, dev, kernels, kept, lanes36d=512, n36d=50,
+                      iters36d=2000, burst36=64, record_iters=40,
+                      sample=(0, 21, 42, 63)):
+    """Phase 36: the batched megakernel (``solve_batch(kernel='mega')``,
+    every lane in one launch) on phase 29's batches (``kept``, from
+    :func:`batch_phases`), on a batch wider than one resident wave, and
+    under ``profile='fast'`` and a ``BatchRunner`` burst with
+    ``kernel='auto'``. Each path is driven once, its launch counts set to
+    0 just before it; the comparisons with single-lane solves and the
+    plain version run outside them. The sizes are arguments only so that
+    the flow can be rehearsed small. Returns (the kernels' launch counts
+    over these paths, the kernels record's ``megakernel_batch`` row)."""
+    mk = kernels["megakernel"]
+    on_card = dev.type == "cuda"
+    f32 = torch.float32
+    counts = {k: 0 for k in kernels}
+    t36 = time.perf_counter()
+
+    def count(runs):
+        for r in runs.values():
+            for k in kernels:
+                counts[k] += r[2][k]
+        return runs
+
+    def one_launch(what, cnt, launches=1):
+        # on the card every lane runs in the plan's one launch of the
+        # batched kernel, and nothing else launches (a single solve's
+        # megakernel launch neither); on the CPU the plain version counts
+        # nothing
+        if on_card:
+            check(cnt["megakernel_batch"] == launches and sum(cnt.values())
+                  == launches, f"{what}: launches {cnt} (want {launches} "
+                  f"batched megakernel launch(es))")
+
+    def plan_of(lanes, m, n, cone_):
+        if on_card:
+            return mk.device_plan_batch(lanes, m, n, cone_, dev)[0]
+        return mk.plan_batch(lanes, m, n, mk.cone_tables(cone_), 132,
+                             232_448)
+
+    def x_err(x, ref):
+        """Each lane's max |x - ref| over 1 + |ref|_inf, the largest."""
+        return float(((x - ref).abs().amax(-1)
+                      / (1.0 + ref.abs().amax(-1))).max())
+
+    # ---- 36a: 29b's 64 n=100 LPs at 8,000 iterations on the kernel
+    c64, a64, b64, lay, p64, r64, rate64 = kept["29b"]
+    lanes, m, n = a64.shape
+    iters = p64.max_iter
+    pm = dataclasses.replace(p64, kernel="mega")
+    recorded = []
+    real_batch = mk.solve_mega_batch
+
+    def recording(*args, **kwargs):
+        out = real_batch(*args, **kwargs)
+        recorded.append((args, kwargs, out))
+        return out
+
+    mk.solve_mega_batch = recording
+    try:
+        runs = count(drive({
+            f"batch LP n={n} x {lanes} lanes, kernel='mega'":
+                lambda: BatchRun(tt.solve_batch(c64, a64, b64, lay, pm))},
+            kernels))
+    finally:
+        mk.solve_mega_batch = real_batch
+    r36, wall36, cnt36 = next(iter(runs.values()))[:3]
+    r36 = r36.res
+    one_launch("36a", cnt36)
+    check(r36.diag["route"] == "mega" and len(recorded) == 1,
+          f"36a: route {r36.diag['route']}, {len(recorded)} batched calls")
+    check(bool((r36.iters == iters).all()),
+          f"36a: iterations {sorted(set(r36.iters.tolist()))}")
+    check(torch.equal(r36.status, r64.status),
+          f"36a: statuses {r36.status.tolist()} against the host loop's "
+          f"{r64.status.tolist()}")
+    err36 = x_err(r36.x, r64.x)
+    check(err36 <= 1e-5, f"36a: x {err36:.3e} from 29b's graphed batch")
+    bp = plan_of(lanes, m, n, lay)
+    args, kwargs, out = recorded[0]
+    # each sampled lane alone: one launch of the kernel on that lane's
+    # inputs at the batch's G (bitwise: the kernel against itself), and
+    # solve_jit(kernel='mega') at that G (its setup's reductions run on
+    # one lane's shapes, so the two agree to f32 roundoff)
+    saved = dict(mk.PLAN_OVERRIDES)
+    mk.PLAN_OVERRIDES["grid"] = bp.grid
+    rows = []
+    try:
+        for i in [j for j in sample if j < lanes]:
+            u1, v1, k1, s1, _ = mk.solve_mega_batch(
+                *_lane_args(args, i), **_lane_kwargs(kwargs, i))
+            same = (all(torch.equal(a_[0], b_[i]) for a_, b_
+                        in zip(u1 + v1, out[0] + out[1]))
+                    and int(k1[0]) == int(out[2][i])
+                    and int(s1[0]) == int(out[3][i]))
+            check(same, f"36a: lane {i} alone on the kernel at G="
+                  f"{bp.grid} differs from the batch's lane")
+            alone = tt.solve_jit(c64[i], a64[i], b64[i], lay, pm)
+            d = x_err(alone.x[None], r36.x[i:i + 1])
+            check(alone.status == int(r36.status[i])
+                  and alone.iters == int(r36.iters[i]) and d <= 1e-4,
+                  f"36a: lane {i} through solve_jit: status {alone.status}"
+                  f", {alone.iters} iterations, x {d:.3e} away")
+            rows.append(f"lane {i} bitwise, solve_jit "
+                        + _same_or(alone.x, r36.x[i], d))
+    finally:
+        mk.PLAN_OVERRIDES.clear()
+        mk.PLAN_OVERRIDES.update(saved)
+    # the kernel against its plain version (the host loop lane by lane)
+    # on 36a's inputs at record_iters iterations: x/tau, times, bound
+    short = dict(kwargs, max_iter=record_iters)
+    k_s, out_k = sync_time(lambda: mk.solve_mega_batch(*args, **short), 3)
+    p_s, out_p = sync_time(lambda: mk.solve_mega_batch_plain(*args, **short),
+                           1)
+    xk, xp = _x_over_tau(out_k), _x_over_tau(out_p)
+    err_plain = float((xk - xp).abs().max())
+    # each lane's error relative to its own |x/tau|_inf, with no floor: a
+    # lane that read a neighbour's data would be off by its whole size
+    xp_lane = xp.abs().amax(-1)
+    rel_plain = float(((xk - xp).abs().amax(-1) / xp_lane).max())
+    check(torch.equal(out_k[3], out_p[3]) and rel_plain <= 1e-5,
+          f"36a: kernel against plain: statuses {out_k[3].tolist()} / "
+          f"{out_p[3].tolist()}, x/tau {err_plain:.3e} ({rel_plain:.3e} of "
+          f"a lane's |x/tau|_inf)")
+    a_bytes = 4 * m * n * (1 if args[0].stride(0) == 0 else lanes)
+    bnd = bound_ms(a_bytes, 8 * m * n * int(out_k[2].sum()))
+    rate36 = lanes * iters / wall36
+    print(f"phase 36a batched megakernel, 29b's batch LP n={n} x {lanes} "
+          f"lanes, {iters} iterations at eps_acc 1e-9: {wall36:.3f} s, "
+          f"{rate36:.0f} lane-iterations/s (29b's graphed host loop "
+          f"{rate64:.0f}, {rate36 / rate64:.2f}x), launches "
+          f"{cnt36['megakernel_batch']}; plan {bp.describe()}; statuses the "
+          f"host loop's, x {err36:.2e} from it; {'; '.join(rows)}; kernel "
+          f"against plain at {record_iters} iterations: "
+          f"{1e3 * k_s:.2f} / {1e3 * p_s:.1f} ms, x/tau {err_plain:.2e} "
+          f"(at most {rel_plain:.2e} of a lane's |x/tau|_inf, which runs "
+          f"{float(xp_lane.min()):.3g}-{float(xp_lane.max()):.3g}), "
+          f"bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+
+    # ---- 36b: 29a's batch8 (A expanded, Halpern) to convergence
+    c29, a29, b29, lay29, p29, r29, wall29 = kept["29a"]
+    runs = count(drive({
+        f"batch LP n={n} x {a29.shape[0]} lanes Halpern, kernel='mega'":
+            lambda: BatchRun(tt.solve_batch(
+                c29, a29, b29, lay29, dataclasses.replace(p29,
+                                                          kernel="mega")))},
+        kernels))
+    r36b, wall36b, cnt = next(iter(runs.values()))[:3]
+    r36b = r36b.res
+    one_launch("36b", cnt)
+    check(bool((r36b.status == 1).all()),
+          f"36b: statuses {r36b.status.tolist()}")
+    bpb = plan_of(a29.shape[0], a29.shape[1], n, lay29)
+    print(f"phase 36b batched megakernel, 29a's batch8 (A expanded, "
+          f"Halpern, eps_acc 1e-3): all CONVERGED in {wall36b:.3f} s "
+          f"(29a's host loop {wall29:.3f} s), iterations (kernel/host loop)"
+          f" " + ", ".join(f"{a_}/{b_}" for a_, b_ in zip(
+              r36b.iters.tolist(), r29.iters.tolist()))
+          + f"; launches {cnt['megakernel_batch']}; plan {bpb.describe()}",
+          flush=True)
+
+    # ---- 36c: 29c's 32 growth portfolios (mega_kernel<true>)
+    cg, ag, bg, gr_cone, pg, rg = kept["29c"]
+    runs = count(drive({
+        f"batch growth portfolio x {ag.shape[0]} lanes, kernel='mega'":
+            lambda: BatchRun(tt.solve_batch(
+                cg, ag, bg, gr_cone, dataclasses.replace(pg,
+                                                         kernel="mega")))},
+        kernels))
+    r36c, wall36c, cnt = next(iter(runs.values()))[:3]
+    r36c = r36c.res
+    one_launch("36c", cnt)
+    obj_k = (cg.double() * r36c.x.double()).sum(-1)
+    obj_h = (cg.double() * rg.x.double()).sum(-1)
+    rel = float(((obj_k - obj_h).abs() / obj_h.abs().clamp(min=1.0)).max())
+    check(bool((r36c.status == 1).all()) and rel <= 5e-3,
+          f"36c: statuses {r36c.status.tolist()}, objectives {rel:.3e} "
+          f"from 29c's")
+    bpc = plan_of(ag.shape[0], ag.shape[1], ag.shape[2], gr_cone)
+    print(f"phase 36c batched megakernel, 29c's {ag.shape[0]} growth "
+          f"portfolios (exp/pow, mega_kernel<true>): all CONVERGED in "
+          f"{wall36c:.3f} s, iterations median "
+          f"{int(r36c.iters.median())} max {int(r36c.iters.max())} (29c's "
+          f"host loop: median {int(rg.iters.median())} max "
+          f"{int(rg.iters.max())}), objectives within {rel:.2e} of 29c's; "
+          f"launches {cnt['megakernel_batch']}; plan {bpc.describe()}",
+          flush=True)
+
+    # ---- 36d: lanes36d n=50 QPs (seeds 0..) at fixed iterations: more
+    # lanes than one wave of CTAs holds, one CTA a lane
+    qps = [tt.problems.qp(*[torch.from_numpy(v) for v in make_qp(n36d, i)],
+                          device="cpu") for i in range(lanes36d)]
+    qcone = qps[0].cone
+    cq, aq, bq = (torch.stack(ts).to(dev, f32) for ts in (
+        [q.c for q in qps], [q.a.a for q in qps], [q.b for q in qps]))
+    pq = tt.SolverParam(max_iter=iters36d, eps_acc=1e-12, check_period=20,
+                        kernel="mega")
+    runs = count(drive({
+        f"batch QP n={n36d} x {lanes36d} lanes, kernel='mega'":
+            lambda: BatchRun(tt.solve_batch(cq, aq, bq, qcone, pq))},
+        kernels))
+    r36d, wall36d, cnt = next(iter(runs.values()))[:3]
+    r36d = r36d.res
+    one_launch("36d", cnt)
+    check(bool((r36d.iters == iters36d).all() and (r36d.status == 2).all()),
+          f"36d: statuses {sorted(set(r36d.status.tolist()))}, iterations "
+          f"{sorted(set(r36d.iters.tolist()))}")
+    bpd = plan_of(lanes36d, aq.shape[1], aq.shape[2], qcone)
+    rows = []
+    for i in sorted({0, lanes36d // 2, lanes36d - 1}):
+        alone = tt.solve_jit(cq[i], aq[i], bq[i], qcone, pq)
+        d = x_err(alone.x[None], r36d.x[i:i + 1])
+        check(alone.iters == iters36d and d <= 1e-4,
+              f"36d: lane {i} alone: {alone.iters} iterations, x {d:.3e} "
+              f"away")
+        rows.append(f"lane {i} " + _same_or(alone.x, r36d.x[i], d))
+    print(f"phase 36d batched megakernel, {lanes36d} QPs n={n36d} (A "
+          f"{aq.shape[1]}x{aq.shape[2]} each), {iters36d} iterations: "
+          f"{wall36d:.3f} s, {lanes36d * iters36d / wall36d:.0f} "
+          f"lane-iterations/s; launches {cnt['megakernel_batch']}; plan "
+          f"{bpd.describe()}; against single-lane megakernel solves: "
+          + ", ".join(rows), flush=True)
+
+    # ---- 36e: profile='fast' on 29a's batch (mega-first: the kernel via
+    # kernel='auto'), and a BatchRunner burst with kernel='auto'
+    pf = tt.SolverParam(profile="fast", max_iter=200_000, eps_acc=1e-3)
+    runner = tt.BatchRunner(tt.SolverParam(max_iter=iters36d,
+                                           eps_acc=1e-12, check_period=20,
+                                           kernel="auto"), device=dev)
+    burst = [(cq[i], aq[i], bq[i], qcone) for i in range(burst36)]
+    runs = count(drive({
+        f"batch LP x {a29.shape[0]} lanes, profile='fast'":
+            lambda: BatchRun(tt.solve_batch(c29, a29, b29, lay29, pf)),
+        f"BatchRunner burst of {burst36} QPs, kernel='auto'":
+            lambda: RunnerRun(runner.map(burst))}, kernels))
+    (r_fast, _, cnt_fast, _), (r_run, wall_run, cnt_run, _) = runs.values()
+    want = "mega" if on_card else "loop"
+    routes = sorted({r for v in runner.routes.values() for r in v})
+    tiers = len(runner.routes)
+    check(r_fast.res.diag["route"] == want and routes == [want]
+          and bool((r_fast.res.status == 1).all()),
+          f"36e: fast profile route {r_fast.res.diag['route']}, statuses "
+          f"{r_fast.res.status.tolist()}; runner routes {routes}")
+    one_launch("36e fast profile", cnt_fast)
+    one_launch("36e BatchRunner", cnt_run, tiers)
+    print(f"phase 36e kernel='auto': profile='fast' on 29a's batch ran on "
+          f"the {r_fast.res.diag['route']} route, launches "
+          f"{cnt_fast['megakernel_batch']}, iterations "
+          f"{r_fast.res.iters.tolist()}; a BatchRunner burst of {burst36} "
+          f"QPs in {tiers} tier(s) on the {routes} route, launches "
+          f"{cnt_run['megakernel_batch']}, {wall_run:.3f} s; phase 36 "
+          f"took {time.perf_counter() - t36:.1f} s", flush=True)
+    row = {"name": "megakernel_batch", "route": "cuda",
+           "source": "totsu_tpu_torch/csrc/megakernel.cu",
+           "replaces": "totsu_tpu/ops/pallas/megakernel.py:184",
+           "launches": counts["megakernel_batch"],
+           "max_abs_err": err_plain,
+           "ms": 1e3 * k_s, "plain_ms": 1e3 * p_s, "bound_ms": bnd[0],
+           "bound_by": bnd[1], "library_ms": None, "plan": bp.describe()}
+    return counts, row
+
+
+#: phase 37's examples, at tests/test_examples.py's sizes
+EXAMPLES37 = (
+    ("l1reg_lp", dict(l=10)), ("svm_qp", dict(l=20)),
+    ("trajplan_qcqp", dict(t_cap=12, a_cap=300.0)),
+    ("toruscompl_socp", dict(x_num=5, y_num=4)),
+    ("partitioning_sdp", dict(x_num=4, y_num=3)),
+    ("imgnr_udef", dict(w=24, h=24, ratio=0.01)),
+    ("leastsq_qp", dict(mrows=30, n=8)),
+    ("growthport_powexp", dict(n=4, s_num=4, h_budget=-1.0)),
+    ("boxdesign_gp", {}), ("logreg_expcone", dict(m=24, n=6)),
+    ("fit_qp", dict(n=3, n_obs=3, steps=80)))
+
+
+def examples_phase(dev, kernels, examples=EXAMPLES37):
+    """Phase 37: each example's ``main`` on ``dev`` (the card in f32, the
+    CPU in f64 when rehearsed) at tests/test_examples.py's sizes; a
+    self-check that fails fails the phase. Returns the launch counts."""
+    import importlib
+    on_card = dev.type == "cuda"
+    counts = {k: 0 for k in kernels}
+    rows = []
+    t37 = time.perf_counter()
+    for name, kw in examples:
+        mod = importlib.import_module(f"examples_torch.{name}")
+        for k in kernels.values():
+            k.launches = 0
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            mod.main(**kw, cpu=not on_card)
+        except AssertionError as exc:
+            fail(f"37: {name}'s self-check failed: {exc!r}")
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        cnt = {k: m.launches for k, m in kernels.items()}
+        for k in kernels:
+            counts[k] += cnt[k]
+        rows.append(f"{name} {wall:.2f} s "
+                    + (", ".join(f"{k} {v}" for k, v in cnt.items() if v)
+                       or "no kernel launch"))
+    print(f"phase 37 the examples' mains at tests/test_examples.py's sizes "
+          f"({'f32 on the card' if on_card else 'f64 on the CPU'}), every "
+          f"self-check passed: " + "; ".join(rows) + f"; phase 37 took "
+          f"{time.perf_counter() - t37:.1f} s", flush=True)
+    return counts
+
 
 #: phase 34a's parameters (the main path's Halpern profile, at a fixed
 #: count: eps_acc far below what the count reaches)
@@ -3225,7 +3351,7 @@ def run_ranks(nranks, backend, device_type, cfg, scenarios, timeout):
     return [results[r] for r in range(nranks)]
 
 
-def distribution_phases(tt, dev, kernels, lp_n=1000, dense_iters=2000,
+def distribution_phases(tt, dev, kernels, lp_n=1000, dense_iters=1000,
                         f32_iters=400, ell_n=65_536, ell_iters=500,
                         n34c=100, lanes34c=64, iters34c=8000,
                         fleet=(8, 64, 192), admm_rounds=4, coll_reps=200,
@@ -3537,6 +3663,7 @@ def main():
         + f"; wall {build_s:.2f} s", flush=True)
     for name in kernels:
         print_ptxas(name, _build.library_path(name))
+    kernels["megakernel_batch"] = BatchLaunches(mk)
 
     # ---- phase 2: dual_matvec against its plain version
     # error bound: max |kernel - plain| <= rtol * max |plain| (f32 sums run
@@ -4661,8 +4788,18 @@ def main():
 
     # ---- phases 29-33: lockstep batches, BatchRunner and consensus ADMM
     t29 = time.perf_counter()
-    for k, v in batch_phases(tt, dev, kernels).items():
+    kept29 = {}
+    for k, v in batch_phases(tt, dev, kernels, kept=kept29).items():
         main_counts[k] += v
+
+    # ---- phase 36: the batched megakernel on phase 29's batches and
+    # past one resident wave; phase 37: the examples on the card
+    t36 = time.perf_counter()
+    counts36, mega_batch_record = batch_mega_phases(tt, dev, kernels, kept29)
+    del kept29
+    for counts in (counts36, examples_phase(dev, kernels)):
+        for k, v in counts.items():
+            main_counts[k] += v
 
     # ---- phase 34: distribution over ranks (each its own process; the
     # ranks' dual_matvec launches count); phase 35: the native engine
@@ -4670,13 +4807,18 @@ def main():
     for k, v in distribution_phases(tt, dev, kernels).items():
         main_counts[k] += v
     native_phase(tt, dev, kernels)
-    # kernel J's launches over every path (phase 28a's DPi builds too)
+    # kernel J's launches over every path (phase 28a's DPi builds too), the
+    # batched megakernel's over every path (phase 36's six and any other)
     jacobi_record["launches"] = main_counts["psd_jacobi"]
+    mega_batch_record["launches"] = main_counts["megakernel_batch"]
+    check(main_counts["megakernel_batch"] > 0,
+          "the main path launched megakernel_batch no time")
     t_end = time.perf_counter()
     print(f"all phases passed in {t_end - t_start:.1f} s "
           f"(phases 23-26 from {t23 - t_start:.1f} s, phases 27-28 from "
           f"{t27 - t_start:.1f} s: {t29 - t27:.1f} s, phases 29-33 from "
-          f"{t29 - t_start:.1f} s: {t34 - t29:.1f} s, phases 34-35 from "
+          f"{t29 - t_start:.1f} s: {t36 - t29:.1f} s, phases 36-37 from "
+          f"{t36 - t_start:.1f} s: {t34 - t36:.1f} s, phases 34-35 from "
           f"{t34 - t_start:.1f} s: {t_end - t34:.1f} s)", flush=True)
 
     primal = cp_main[False]
@@ -4709,6 +4851,7 @@ def main():
          "bound_ms": primal[3][0], "bound_by": primal[3][1],
          "library_ms": None, "device_ms": primal[6]},
         jacobi_record,
+        mega_batch_record,
     ]}
     print(smi)
     print(json.dumps(record))

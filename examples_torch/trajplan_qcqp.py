@@ -1,14 +1,24 @@
-"""The 2-D trajectory-planning QCQP's data (the builder of
-``examples/trajplan_qcqp.py``, ref examples/trajplan_qcqp/src/main.rs:
-17-146), which ``trajsweep_batch`` sweeps: t_cap time steps, variables
-the stacked x/y positions (n = 2 t_cap); minimize total squared velocity
-(P0 = D1'D1 finite differences), subject to per-step acceleration
-magnitude ||a(t)||^2 <= A^2 (P_i = D2'D2, r_i = -A^2/2) and 12 equality
-constraints pinning start/end positions and velocities and two
-waypoints. The single-solve example itself is ROADMAP item 12's.
+"""2-D trajectory planning as a QCQP (port of
+``examples/trajplan_qcqp.py``, after ref examples/trajplan_qcqp/src/
+main.rs:17-146): t_cap time steps, variables the stacked x/y positions
+(n = 2 t_cap); minimize total squared velocity (P0 = D1'D1 finite
+differences), subject to per-step acceleration magnitude ||a(t)||^2 <=
+A^2 (P_i = D2'D2, r_i = -A^2/2) and 12 equality constraints pinning
+start/end positions and velocities and two waypoints. ``trajsweep_batch``
+sweeps its builder over caps.
+
+    python examples_torch/trajplan_qcqp.py [a_cap] [--cpu]
 """
 
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
 import numpy as np
+
+from examples_torch._common import host, param, report, setup, tensors
 
 
 def build(t_cap=30, a_cap=90.0):
@@ -68,3 +78,40 @@ def build(t_cap=30, a_cap=90.0):
 
     return (np.stack(p_mats), np.stack(q_vecs), np.array(r_scls), a, b,
             t_cap, a_cap)
+
+
+def main(t_cap=30, a_cap=90.0, cpu=None):
+    device, dtype, backend = setup(cpu)
+    import totsu_tpu_torch as tt
+
+    p_mats, q_vecs, r_scls, a, b, t_cap, a_cap = build(t_cap, a_cap)
+    prob = tt.problems.qcqp(*tensors(device, dtype, p_mats, q_vecs, r_scls,
+                                     a, b))
+
+    t0 = time.time()
+    res = prob.solve_jit(param(dtype, max_iter=200_000, eps_acc=1e-3))
+    n = 2 * t_cap
+    sol = host(res.x)[:n]
+    t_solve = time.time() - t0
+
+    obj = float(0.5 * sol @ p_mats[0] @ sol)
+    # self-checks: waypoint feasibility + acceleration bound
+    viol_eq = float(np.abs(a @ sol - b).max())
+    acc_max = 0.0
+    for i in range(1, len(p_mats)):
+        acc_max = max(acc_max, float(sol @ p_mats[i] @ sol))
+    acc_max = np.sqrt(acc_max)
+    report("trajplan_qcqp", res, t_solve,
+           f"backend={backend} obj={obj:.4f} eq_viol={viol_eq:.2e} "
+           f"max|a|={acc_max:.2f} (cap {a_cap})")
+    assert viol_eq < 5e-3
+    assert acc_max <= a_cap * 1.02
+    return obj
+
+
+if __name__ == "__main__":
+    # a_cap overridable by first CLI argument (ref main.rs:29-34)
+    cli_a_cap = 90.0
+    if len(sys.argv) > 1 and not sys.argv[1].startswith("-"):
+        cli_a_cap = float(sys.argv[1])
+    main(a_cap=cli_a_cap)

@@ -5,7 +5,7 @@ the kernel.
 
 Copies ``totsu_tpu_torch/csrc/megakernel.cu`` into ``build/mega_phases/``
 with a timer at each phase boundary of the pdhg update, the grid sums and
-the Halpern check (``MARKS``: read by thread 0 of CTA 0, accumulated per
+the Halpern check (``MARKS``: read by thread 0 of lane 0's CTA 0, accumulated per
 phase), builds that copy and solves ``mega_timing.py``'s cells through it.
 Prints, per cell, the clocks per iteration of each phase and its share
 (time spent waiting at a grid barrier includes the slowest CTA's work
@@ -55,13 +55,16 @@ MARKS = (
 def patched(src: str) -> str:
     """The kernel source with the timers of MARKS."""
     head = ("__device__ unsigned long long g_phase[32];\n"
-            "#define PHASE(k) do { if (threadIdx.x == 0 && blockIdx.x == 0)"
+            "#define PHASE(k) do { if (threadIdx.x == 0 && blockIdx.x == 0 "
+            "&& blockIdx.y == 0)"
             " { const long long t1_ = clock64(); g_phase[k] += t1_ - cx.t0;"
             " cx.t0 = t1_; } } while (0)\n")
     for old, new in (
             ("namespace {\n\nconstexpr int kThreads",
              head + "namespace {\n\nconstexpr int kThreads"),
-            ("  int nb, nt;\n};", "  int nb, nt;\n  long long t0;\n};"),
+            ("  float dptt, dpst, norm_b, norm_c, sb, sc;\n};",
+             "  float dptt, dpst, norm_b, norm_c, sb, sc;\n"
+             "  long long t0;\n};"),
             ("  cx.nt = g.tri_off[cta + 1] - g.tri_off[cta];\n",
              "  cx.nt = g.tri_off[cta + 1] - g.tri_off[cta];\n"
              "  cx.t0 = clock64();\n"),

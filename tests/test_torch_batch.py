@@ -189,8 +189,10 @@ def _raises(fn, item):
 
 
 def test_unported_options_raise_naming_their_item():
-    """kernel='mega' in a batch is item 14c and a batch of structured
-    operators 14d; every name of the distribution layer works, here on a
+    """A batch of structured operators is item 14d; kernel='mega' in a
+    batch solves (the batched megakernel, its plain version here) and
+    refuses a row-sharded batch as the single solve refuses a
+    row_sharding; every name of the distribution layer works, here on a
     1-rank gloo mesh, and a mesh that is not a DeviceMesh is a
     TypeError."""
     import torch.distributed as dist
@@ -199,8 +201,10 @@ def test_unported_options_raise_naming_their_item():
     lay = tt.ConeLayout([tt.rpos(m)])
     args = (_t(c), _t(a), _t(b), lay)
     p = tt.SolverParam(max_iter=200)
-    _raises(lambda: solve_batch(*args, tt.SolverParam(kernel="mega")),
-            "14c")
+    f32 = tuple(x.float() for x in args[:3]) + (lay,)
+    mega = solve_batch(*f32, tt.SolverParam(kernel="mega", max_iter=200))
+    assert mega.diag["route"] == "mega" and tuple(mega.iters.shape) == (2,)
+    assert (mega.iters == 200).all()
     ell = tt.DiagOp(torch.ones(3, dtype=torch.float64))
     _raises(lambda: solve_batch(_t(c[:, :3]), ell, _t(b[:, :3]),
                                 tt.ConeLayout([tt.rpos(3)])), "14d")
@@ -226,6 +230,11 @@ def test_unported_options_raise_naming_their_item():
         on_mesh = solve_batch(*args, p, mesh=mesh)
         assert torch.equal(on_mesh.x, whole.x)
         assert torch.equal(on_mesh.iters, whole.iters)
+        # the rank's lanes on the batched megakernel (its plain version)
+        mega_mesh = solve_batch(*f32, tt.SolverParam(kernel="mega",
+                                                     max_iter=200),
+                                mesh=mesh)
+        assert torch.equal(mega_mesh.x, mega.x)
         prob = parallel.shard_dense_problem(
             tt.ConicProblem(_t(c[0]), tt.DenseOp(_t(a[0])), _t(b[0]), lay),
             mesh)
@@ -237,6 +246,13 @@ def test_unported_options_raise_naming_their_item():
                                          device="cpu")
         parallel.shard_blocked_ell_problem(
             tt.ConicProblem(_t(c[0]), ell, _t(b[0]), lay), mesh)
+        from totsu_tpu_torch.parallel.sharded import (RowShardedOp,
+                                                      RowSharding, even_split)
+        rows = RowShardedOp(tt.BatchedDenseOp(f32[1]), RowSharding(
+            mesh, "row", even_split(mesh, "row", m)))
+        with pytest.raises(ValueError, match="kernel='mega'"):
+            solve_batch(f32[0], rows, f32[2], lay,
+                        tt.SolverParam(kernel="mega", max_iter=200))
     finally:
         dist.destroy_process_group()
     assert sorted(parallel.__all__) == sorted(

@@ -1062,3 +1062,70 @@ def test_tiles_box_ell_is_the_tiles_lp_stacked():
     np.testing.assert_array_equal(c, c0)
     want = cs.tiles_box_csr(tiles, 256, 128).toarray()
     np.testing.assert_array_equal(op.to_dense().numpy(), want)
+
+
+def test_batch_launches_are_counted_apart(monkeypatch):
+    # the kernels line's megakernel row counts single solves' launches and
+    # its megakernel_batch row the batched ones: the script reads and
+    # resets the batch's count under the name every count goes by
+    from totsu_tpu_torch.ops.kernels import megakernel as mk
+    monkeypatch.setattr(mk, "launches", 3)
+    monkeypatch.setattr(mk, "batch_launches", 5)
+    counter = cs.BatchLaunches(mk)
+    assert counter.launches == 5
+    counter.launches = 0
+    assert mk.batch_launches == 0 and mk.launches == 3
+
+
+def test_batch_mega_and_examples_phases_run_on_the_cpu(monkeypatch, capsys):
+    # phases 36-37's flow (every solve, gate and line) at small sizes on
+    # the CPU, where the batched megakernel runs its plain version: phase
+    # 29's batches kept from a small batch_phases run, then 36 on them and
+    # 37 on two examples (f64 on the CPU)
+    import totsu_tpu_torch as tt
+    from totsu_tpu_torch.ops.kernels import dual_matvec as dm
+    from totsu_tpu_torch.ops.kernels import megakernel as mk
+    from totsu_tpu_torch.ops.kernels import psd_jacobi as pj
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **kw: None)
+    kernels = {"dual_matvec": dm, "megakernel": mk, "cone_proj": cp,
+               "psd_jacobi": pj, "megakernel_batch": cs.BatchLaunches(mk)}
+    cpu = torch.device("cpu")
+    f32 = torch.float32
+    rng = np.random.default_rng(1)
+    lp = [cs.make_lp(6, seed=100 + i) for i in range(3)]
+    c64, a64, b64 = (torch.tensor(np.stack([x[j] for x in lp]), dtype=f32)
+                     for j in range(3))
+    lay = tt.ConeLayout([tt.rpos(24)])
+    p64 = tt.SolverParam(max_iter=40, eps_acc=1e-9, check_period=20)
+    r64 = tt.solve_batch(c64, a64, b64, lay, p64)
+    c1, g1, h1 = (torch.tensor(x) for x in cs.make_lp(6))
+    c29 = torch.stack([c1 * (1.0 + 0.1 * float(rng.random()))
+                       for _ in range(2)])
+    p29 = tt.SolverParam(max_iter=200_000, eps_acc=1e-3, check_period=20,
+                         accel="halpern")
+    a29, b29 = g1.expand(2, -1, -1), h1.expand(2, -1)
+    r29 = tt.solve_batch(c29, a29, b29, lay, p29)
+    grs = [cs.make_growth(4, 6, -1.2, seed=i) for i in range(2)]
+    gcone = cs.cone(tt, grs[0][4])
+    cg, ag, bg = (torch.tensor(np.stack([g[j] for g in grs]), dtype=f32)
+                  for j in (1, 2, 3))
+    pg = tt.SolverParam(accel="halpern", normalize=True, equil_iters=10,
+                        check_period=20, eps_acc=1e-4, max_iter=200_000)
+    rg = tt.solve_batch(cg, ag, bg, gcone, pg)
+    kept = {"29a": (c29, a29, b29, lay, p29, r29, 1.0),
+            "29b": (c64, a64, b64, lay, p64, r64, 1e5),
+            "29c": (cg, ag, bg, gcone, pg, rg)}
+    counts, row = cs.batch_mega_phases(tt, cpu, kernels, kept, lanes36d=4,
+                                       n36d=6, iters36d=40, burst36=2,
+                                       record_iters=20, sample=(0, 2))
+    assert counts == {k: 0 for k in kernels}
+    assert row["name"] == "megakernel_batch" and row["library_ms"] is None
+    assert set(row) >= {"route", "source", "replaces", "launches",
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "plan"}
+    assert cs.examples_phase(cpu, kernels, examples=(
+        ("partitioning_sdp", dict(x_num=4, y_num=3)),
+        ("leastsq_qp", dict(mrows=30, n=8)))) == {k: 0 for k in kernels}
+    out = capsys.readouterr().out
+    for phase in ("36a", "36b", "36c", "36d", "36e", "37"):
+        assert f"\nphase {phase} " in out

@@ -224,3 +224,66 @@ def test_solve_mega_cuda_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         mk.solve_mega_cuda(*args, eps_acc=1e-3, eps_inf=1e-6, eps_zero=1e-12,
                            max_iter=10, check_period=5)
+
+
+#: the smoke's batched megakernel cells (phase 36): (shape, lanes)
+BATCHES = [("lp100", 8), ("lp100", 64), ("qp50", 512), ("growth", 32)]
+
+
+@pytest.mark.parametrize("name,lanes", BATCHES)
+def test_plan_batch_covers_every_lane_and_stays_resident(name, lanes):
+    # each lane's plan covers every row once with whole blocks; a
+    # cooperative launch (G > 1) holds lanes x G CTAs within the SMs, one
+    # CTA per SM; past the SMs each lane gets one CTA, in waves
+    m, n, cone = _shape(name)
+    tables = mk.cone_tables(cone)
+    bp = mk.plan_batch(lanes, m, n, tables, 132, SMEM)
+    pl = bp.plan
+    assert pl.row_off[0] == 0 and pl.row_off[-1] == m
+    assert all(a < b for a, b in zip(pl.row_off, pl.row_off[1:]))
+    cuts = set(int(x) for x in mk._cut_points(m, tables[1], tables[2]))
+    assert set(pl.row_off) <= cuts
+    assert bp.ctas == lanes * pl.grid
+    if bp.cooperative:
+        assert bp.ctas <= 132 and bp.waves == 1
+    else:
+        assert pl.grid == 1 and bp.waves == -(-lanes // 132)
+    assert pl.smem_bytes + mk.STATIC_SMEM <= SMEM
+    # a lane's G is what the single plan picks on the SMs it may use
+    assert pl == mk.plan(m, n, tables, max(1, 132 // lanes) if lanes <= 132
+                         else 132, SMEM, grid=None if lanes <= 132 else 1)
+    assert f"{lanes} lanes" in bp.describe()
+
+
+def test_plan_batch_main_path_regimes():
+    # batch8 and batch64 of the n=100 LP and the 32 growth portfolios are
+    # cooperative with G > 1; 512 QP lanes are one CTA each, 4 waves
+    tables = mk.cone_tables(_shape("lp100")[2])
+    assert mk.plan_batch(8, 400, 100, tables, 132, SMEM).grid == 4
+    assert mk.plan_batch(64, 400, 100, tables, 132, SMEM).grid == 2
+    assert mk.plan_batch(66, 400, 100, tables, 132, SMEM).grid == 2
+    assert mk.plan_batch(67, 400, 100, tables, 132, SMEM).grid == 1
+    m, n, cone = _shape("qp50")
+    bp = mk.plan_batch(512, m, n, mk.cone_tables(cone), 132, SMEM)
+    assert not bp.cooperative and bp.waves == 4
+    # one lane is the single solve's plan
+    assert mk.plan_batch(1, 400, 100, tables, 132, SMEM).plan \
+        == mk.plan(400, 100, tables, 132, SMEM)
+
+
+def test_plan_batch_is_pure_and_refuses_bad_input():
+    m, n, cone = _shape("growth")
+    tables = mk.cone_tables(cone)
+    assert mk.plan_batch(32, m, n, tables, 132, SMEM) \
+        == mk.plan_batch(32, m, n, tables, 132, SMEM)
+    for bad in (dict(lanes=0), dict(sm_count=0)):
+        kw = dict(lanes=32, m=m, n=n, tables=tables, sm_count=132,
+                  smem_per_block=SMEM)
+        kw.update(bad)
+        with pytest.raises(ValueError, match="plan_batch"):
+            mk.plan_batch(**kw)
+    # a forced G must stay resident; G = 1 always may
+    with pytest.raises(ValueError, match="resident"):
+        mk.plan_batch(32, m, n, tables, 132, SMEM, grid=5)
+    assert mk.plan_batch(32, m, n, tables, 132, SMEM, grid=4).grid == 4
+    assert mk.plan_batch(500, m, n, tables, 132, SMEM, grid=1).waves == 4

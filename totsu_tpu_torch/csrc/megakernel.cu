@@ -43,6 +43,13 @@
 //    call, released with a fence and acquired with ld.acquire; the launch
 //    is cooperative (cudaLaunchCooperativeKernel), which refuses a grid
 //    that cannot be resident all at once instead of deadlocking.
+//  * A launch solves a batch of lanes (the Pallas kernel under jax.vmap):
+//    lane l is the CTAs of blockIdx.y = l, each lane with its own data,
+//    barrier word, partials and outputs, and A either per lane or one
+//    matrix every lane reads. A lane's CTAs hold the same bits, so they
+//    take the same branches; lanes exit on their own. The plan
+//    (`plan_batch`) gives each lane G CTAs with lanes x G resident, or one
+//    CTA per lane, which needs no barrier and so no residency.
 //  * Reductions inside a CTA (dot products, norms, SOC block norms) are
 //    warp-shuffle + shared-memory sums in a fixed order.
 //  * SOC/RSOC blocks: a warp per block, the RSOC's involutive Givens map
@@ -65,8 +72,15 @@
 // (_MegaArgs mirrors this layout; totsu_mega_struct_size checks it). At
 // global scope: a type from the unnamed namespace would give the
 // extern "C" entry point internal linkage.
+//
+// A launch solves `lanes` independent problems of one shape and one cone
+// layout (a single solve is one lane). Every vector below holds the lanes
+// one after another: an n-vector (lanes, n), an m-vector (lanes, m);
+// scal_out (lanes, 7), int_out (lanes, 2), lane_scal (lanes, 8), barrier
+// (lanes), partials and scratch one lane's share after another. A's lanes
+// are m n floats apart, or every lane reads one A (a_shared).
 struct MegaArgs {
-  // problem data, f32 on the device; A is (m, n) row-major
+  // problem data, f32 on the device; each lane's A is (m, n) row-major
   const float* a;
   const float* c_it;
   const float* b_it;
@@ -83,6 +97,9 @@ struct MegaArgs {
   const float* us0;
   const float* vn0;
   const float* vm0;
+  // per-lane scalars: dp tau and sigma of tau, ||b||, ||c|| (exact data),
+  // the seed's tau and kappa, the normalization's sb and sc
+  const float* lane_scal;
   // cone metadata: per-element kind (m,), SOC/RSOC blocks (nb, 3) =
   // start, dim, rot; exp/pow 3-blocks (nt, 2) = start, kind (0 exp, 1
   // pow) and their power exponents (nt,). Block starts are relative to
@@ -108,11 +125,10 @@ struct MegaArgs {
   const int* tri_off;
   const int* a_smem;
   float* partials;    // (2 grid + 1) rows of ld floats: the cross-CTA sums
-  unsigned* barrier;  // the grid barrier's arrival count, zeroed per call
-  int m, n, nb, nt;
+  unsigned* barrier;  // each lane's grid barrier arrival count, zeroed
+  int lanes, a_shared, m, n, nb, nt;
   int max_iter, check_period, halpern, check_at_start;
   int grid, rows_max, col_threads, split, vec_smem, a_floats, ws_floats, ld;
-  float dptt, dpst, norm_b, norm_c, ut0, v10, sb, sc;
   float eps_acc, eps_inf, eps_zero, relax;
 };
 
@@ -173,6 +189,9 @@ struct Ctx {
   const int *kind, *blocks, *tri;
   const float* tri_alpha;
   int nb, nt;
+  // the lane's n-side data and scalars
+  const float *c_it, *c_ex, *dptx, *dpsx;
+  float dptt, dpst, norm_b, norm_c, sb, sc;
 };
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -246,10 +265,10 @@ __device__ __forceinline__ void red_release(unsigned* p, unsigned v) {
                : "memory");
 }
 
-// Grid barrier: every CTA's writes before it are visible to every CTA
-// after it. Thread 0 arrives with a release (cumulative over the CTA's
-// writes, which __syncthreads ordered before it) and waits with acquire
-// loads. The count only grows (by G per barrier); the wrapped difference
+// Grid barrier over the lane's CTAs: every CTA's writes before it are
+// visible to every CTA of the lane after it. Thread 0 arrives with a
+// release (cumulative over the CTA's writes, which __syncthreads ordered
+// before it) and waits with acquire loads. The count only grows (by G per barrier); the wrapped difference
 // keeps the wait right past 2^32 arrivals.
 __device__ void grid_sync(Ctx& cx) {
   __syncthreads();
@@ -512,13 +531,13 @@ __device__ void update(const Vecs& z, const Vecs& t, const Work& w,
   // K^T v: A vn (the CTA's rows) and A^T vm (over the grid)
   pass(cx, z.vn, z.vm, w.p, q_out(cx, w.q));
   float d[1] = {0.f}, s[1] = {0.f};
-  for (int j = tid; j < n; j += kThreads) d[0] += g.c_it[j] * z.vn[j];
+  for (int j = tid; j < n; j += kThreads) d[0] += cx.c_it[j] * z.vn[j];
   for (int i = tid; i < rows; i += kThreads) s[0] += cx.b_it[i] * z.vm[i];
   grid_sum<1>(cx, w.q, s);
   block_sum<1>(d, cx.red);
-  float ut_n = fmaxf(ut - g.dptt * (d[0] + s[0]), 0.f);
+  float ut_n = fmaxf(ut - cx.dptt * (d[0] + s[0]), 0.f);
   for (int j = tid; j < n; j += kThreads) {
-    const float xn = z.x[j] - g.dptx[j] * (-w.q[j] - g.c_it[j] * v1);
+    const float xn = z.x[j] - cx.dptx[j] * (-w.q[j] - cx.c_it[j] * v1);
     t.x[j] = xn;
     w.rn[j] = z.x[j] - 2.f * xn;
   }
@@ -536,14 +555,14 @@ __device__ void update(const Vecs& z, const Vecs& t, const Work& w,
   pass(cx, w.rn, w.rm, w.p, q_out(cx, w.q));
   d[0] = 0.f;
   s[0] = 0.f;
-  for (int j = tid; j < n; j += kThreads) d[0] += g.c_it[j] * w.rn[j];
+  for (int j = tid; j < n; j += kThreads) d[0] += cx.c_it[j] * w.rn[j];
   for (int i = tid; i < rows; i += kThreads) s[0] += cx.b_it[i] * w.rm[i];
   grid_sum<1>(cx, w.q, s);
   block_sum<1>(d, cx.red);
   const float rut = ut - 2.f * ut_n;
   const float relax = g.relax;
   for (int j = tid; j < n; j += kThreads) {
-    float vn = z.vn[j] - g.dpsx[j] * (w.q[j] + g.c_it[j] * rut);
+    float vn = z.vn[j] - cx.dpsx[j] * (w.q[j] + cx.c_it[j] * rut);
     if (relax != 1.f) {
       vn = z.vn[j] + relax * (vn - z.vn[j]);
       t.x[j] = z.x[j] + relax * (t.x[j] - z.x[j]);
@@ -560,7 +579,7 @@ __device__ void update(const Vecs& z, const Vecs& t, const Work& w,
     }
     t.vm[i] = vm;
   }
-  float v1_n = fminf(v1 - g.dpst * (-d[0] - s[0]), 0.f);
+  float v1_n = fminf(v1 - cx.dpst * (-d[0] - s[0]), 0.f);
   if (relax != 1.f) {
     ut_n = ut + relax * (ut_n - ut);
     v1_n = v1 + relax * (v1_n - v1);
@@ -580,8 +599,8 @@ __device__ void update(const Vecs& z, const Vecs& t, const Work& w,
 __device__ int check(const Vecs& u, int k, const Work& w, const MegaArgs& g,
                      Ctx& cx, float (&crits)[5], float& fp) {
   const int n = cx.n, rows = cx.rows, tid = threadIdx.x;
-  for (int j = tid; j < n; j += kThreads) w.rn[j] = u.x[j] * g.sb;
-  for (int i = tid; i < rows; i += kThreads) w.rm[i] = u.y[i] * g.sc;
+  for (int j = tid; j < n; j += kThreads) w.rn[j] = u.x[j] * cx.sb;
+  for (int i = tid; i < rows; i += kThreads) w.rm[i] = u.y[i] * cx.sc;
   __syncthreads();
   pass(cx, w.rn, w.rm, w.p, q_out(cx, w.q));
   const float ut = u.sc[0];
@@ -592,7 +611,7 @@ __device__ int check(const Vecs& u, int k, const Work& w, const MegaArgs& g,
   float s[4] = {0.f, 0.f, 0.f, fp};
   for (int i = tid; i < rows; i += kThreads) {
     s[0] += cx.b_ex[i] * w.rm[i];
-    const float usu = u.s[i] * g.sb;
+    const float usu = u.s[i] * cx.sb;
     const float pi = w.p[i] * inv_tau + usu * inv_tau - cx.b_ex[i];
     const float pinf = w.p[i] + usu;
     s[1] += pi * pi;
@@ -602,20 +621,20 @@ __device__ int check(const Vecs& u, int k, const Work& w, const MegaArgs& g,
   fp = s[3];
   float d[3] = {0.f, 0.f, 0.f};
   for (int j = tid; j < n; j += kThreads) {
-    d[0] += g.c_ex[j] * w.rn[j];
-    const float dj = g.c_ex[j] + w.q[j] * inv_tau;
+    d[0] += cx.c_ex[j] * w.rn[j];
+    const float dj = cx.c_ex[j] + w.q[j] * inv_tau;
     d[1] += dj * dj;
     d[2] += w.q[j] * w.q[j];
   }
   block_sum<3>(d, cx.red);
   const float cx_ = d[0], by = s[0];
   const float g_x = cx_ * inv_tau, g_y = by * inv_tau;
-  crits[0] = sqrtf(s[1]) / (1.f + g.norm_b);
-  crits[1] = sqrtf(d[1]) / (1.f + g.norm_c);
+  crits[0] = sqrtf(s[1]) / (1.f + cx.norm_b);
+  crits[1] = sqrtf(d[1]) / (1.f + cx.norm_c);
   crits[2] = fabsf(g_x + g_y) / (1.f + fabsf(g_x) + fabsf(g_y));
   const float m_cx = -cx_, m_by = -by;
-  crits[3] = m_cx > g.eps_zero ? sqrtf(s[2]) * g.norm_c / m_cx : INFINITY;
-  crits[4] = m_by > g.eps_zero ? sqrtf(d[2]) * g.norm_b / m_by : INFINITY;
+  crits[3] = m_cx > g.eps_zero ? sqrtf(s[2]) * cx.norm_c / m_cx : INFINITY;
+  crits[4] = m_by > g.eps_zero ? sqrtf(d[2]) * cx.norm_b / m_by : INFINITY;
   const bool conv = tau_pos && crits[0] <= g.eps_acc &&
                     crits[1] <= g.eps_acc && crits[2] <= g.eps_acc;
   const bool unbdd = !tau_pos && crits[3] <= g.eps_inf;
@@ -656,11 +675,15 @@ __global__ void __launch_bounds__(kThreads, 1) mega_kernel(MegaArgs g) {
   __shared__ float red[4 * kWarps];
   __shared__ float scal[6];
   __shared__ float sred[kScal];
-  const int n = g.n, tid = threadIdx.x, cta = blockIdx.x;
+  // blockIdx.y: the lane; blockIdx.x: the CTA's slice of the lane's rows
+  const int n = g.n, tid = threadIdx.x, cta = blockIdx.x, lane = blockIdx.y;
   const int r0 = g.row_off[cta], rows = g.row_off[cta + 1] - r0;
   const int rm = g.rows_max;
+  const size_t nl = static_cast<size_t>(lane) * n;
+  const size_t ml = static_cast<size_t>(lane) * g.m + r0;  // the CTA's rows
   float* p = g.vec_smem ? dyn
-                        : g.scratch + static_cast<size_t>(cta) * g.ws_floats;
+                        : g.scratch + (static_cast<size_t>(lane) * g.grid +
+                                       cta) * g.ws_floats;
   Vecs z{carve(p, n), carve(p, rm), carve(p, rm), carve(p, n), carve(p, rm),
          scal};
   Vecs t{carve(p, n), carve(p, rm), carve(p, rm), carve(p, n), carve(p, rm),
@@ -681,24 +704,39 @@ __global__ void __launch_bounds__(kThreads, 1) mega_kernel(MegaArgs g) {
   cx.qtab = carve(p, kThreads * kSteps);
   cx.red = red;
   cx.sred = sred;
-  cx.part = g.partials;
-  cx.bar = g.barrier;
+  cx.part = g.grid > 1 ? g.partials + static_cast<size_t>(lane) *
+                                         (2 * g.grid + 1) * g.ld
+                       : nullptr;
+  cx.bar = g.barrier + lane;
   cx.target = 0u;
   cx.nred = 0;
   cx.ld = g.ld;
   cx.split = g.split;
-  cx.b_it = g.b_it + r0;
-  cx.b_ex = g.b_ex + r0;
-  cx.dpty = g.dpty + r0;
-  cx.dpts = g.dpts + r0;
-  cx.dpsy = g.dpsy + r0;
+  cx.b_it = g.b_it + ml;
+  cx.b_ex = g.b_ex + ml;
+  cx.dpty = g.dpty + ml;
+  cx.dpts = g.dpts + ml;
+  cx.dpsy = g.dpsy + ml;
+  cx.c_it = g.c_it + nl;
+  cx.c_ex = g.c_ex + nl;
+  cx.dptx = g.dptx + nl;
+  cx.dpsx = g.dpsx + nl;
+  const float* ls = g.lane_scal + 8 * static_cast<size_t>(lane);
+  cx.dptt = ls[0];
+  cx.dpst = ls[1];
+  cx.norm_b = ls[2];
+  cx.norm_c = ls[3];
+  cx.sb = ls[6];
+  cx.sc = ls[7];
   cx.kind = g.kind + r0;
   cx.blocks = g.blocks + 3 * g.blk_off[cta];
   cx.nb = g.blk_off[cta + 1] - g.blk_off[cta];
   cx.tri = g.tri + 2 * g.tri_off[cta];
   cx.tri_alpha = g.tri_alpha + g.tri_off[cta];
   cx.nt = g.tri_off[cta + 1] - g.tri_off[cta];
-  const float* a_rows = g.a + static_cast<size_t>(r0) * n;
+  const float* a_rows =
+      g.a + (g.a_shared ? 0 : static_cast<size_t>(lane) * g.m * n) +
+      static_cast<size_t>(r0) * n;
   if (g.a_smem[cta]) {
     // the CTA's rows of A, into shared memory once
     float* a_sh = g.vec_smem ? dyn + g.ws_floats : dyn;
@@ -710,17 +748,17 @@ __global__ void __launch_bounds__(kThreads, 1) mega_kernel(MegaArgs g) {
   }
 
   for (int j = tid; j < n; j += kThreads) {
-    z.x[j] = g.ux0[j];
-    z.vn[j] = g.vn0[j];
+    z.x[j] = g.ux0[nl + j];
+    z.vn[j] = g.vn0[nl + j];
   }
   for (int i = tid; i < rows; i += kThreads) {
-    z.y[i] = g.uy0[r0 + i];
-    z.s[i] = g.us0[r0 + i];
-    z.vm[i] = g.vm0[r0 + i];
+    z.y[i] = g.uy0[ml + i];
+    z.s[i] = g.us0[ml + i];
+    z.vm[i] = g.vm0[ml + i];
   }
   if (tid == 0) {
-    z.sc[0] = g.ut0;
-    z.sc[1] = g.v10;
+    z.sc[0] = ls[4];
+    z.sc[1] = ls[5];
   }
   __syncthreads();
 
@@ -808,21 +846,22 @@ __global__ void __launch_bounds__(kThreads, 1) mega_kernel(MegaArgs g) {
 
   if (cta == 0) {
     for (int j = tid; j < n; j += kThreads) {
-      g.ux[j] = z.x[j];
-      g.vn[j] = z.vn[j];
+      g.ux[nl + j] = z.x[j];
+      g.vn[nl + j] = z.vn[j];
     }
   }
   for (int i = tid; i < rows; i += kThreads) {
-    g.uy[r0 + i] = z.y[i];
-    g.us[r0 + i] = z.s[i];
-    g.vm[r0 + i] = z.vm[i];
+    g.uy[ml + i] = z.y[i];
+    g.us[ml + i] = z.s[i];
+    g.vm[ml + i] = z.vm[i];
   }
   if (cta == 0 && tid == 0) {
-    g.scal_out[0] = z.sc[0];
-    g.scal_out[1] = z.sc[1];
-    for (int q = 0; q < 5; ++q) g.scal_out[2 + q] = crits[q];
-    g.int_out[0] = k;
-    g.int_out[1] = status;
+    float* so = g.scal_out + 7 * static_cast<size_t>(lane);
+    so[0] = z.sc[0];
+    so[1] = z.sc[1];
+    for (int q = 0; q < 5; ++q) so[2 + q] = crits[q];
+    g.int_out[2 * lane] = k;
+    g.int_out[2 * lane + 1] = status;
   }
 }
 
@@ -854,6 +893,7 @@ int totsu_mega_solve(const MegaArgs* args, void* stream) {
   const MegaArgs& g = *args;
   const int cw = g.col_threads;
   const bool ok =
+      g.lanes >= 1 && g.lanes <= 65535 && g.lane_scal != nullptr &&
       g.m > 0 && g.n > 0 && g.grid >= 1 && g.rows_max >= 1 &&
       cw >= 32 && cw <= kThreads && (cw & (cw - 1)) == 0 &&
       (kThreads / cw == 1 || g.n <= cw * kSteps) &&
@@ -870,12 +910,21 @@ int totsu_mega_solve(const MegaArgs* args, void* stream) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(dyn));
   if (err != cudaSuccess) return static_cast<int>(err);
-  // cooperative: refused, never deadlocked, when the grid cannot be
-  // resident all at once
+  // a lane of several CTAs meets at grid barriers, so the launch is
+  // cooperative: refused, never deadlocked, when the lanes' CTAs cannot be
+  // resident all at once. A lane of one CTA never waits for another CTA,
+  // so any number of lanes launch as a plain grid, in as many waves as
+  // the card needs.
   void* params[] = {const_cast<MegaArgs*>(args)};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
-                                    dim3(g.grid), dim3(kThreads), params, dyn,
-                                    static_cast<cudaStream_t>(stream));
+  const dim3 blocks(g.grid, g.lanes);
+  if (g.grid > 1)
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                      blocks, dim3(kThreads), params, dyn,
+                                      static_cast<cudaStream_t>(stream));
+  else
+    err = cudaLaunchKernel(reinterpret_cast<const void*>(kernel), blocks,
+                           dim3(kThreads), params, dyn,
+                           static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -381,7 +381,8 @@ class _DiffSolve(torch.autograd.Function):
 
 
 class _DiffSolveBatch(torch.autograd.Function):
-    """(c, b, A) -> (x, y) of a lockstep batch (``solve_batch``), each
+    """(c, b, A) -> (x, y) of a lockstep batch (``solve_batch``; with
+    ``kernel='mega'`` the forward runs on the batched megakernel), each
     input (B, ...) or shared by every lane; the rule runs each lane's
     single-solve rule (:class:`_Spec`) and sums a shared input's
     cotangents over the lanes: the port's form of the JAX package's

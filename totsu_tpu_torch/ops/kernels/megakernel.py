@@ -6,15 +6,23 @@ Port of ``totsu_tpu/ops/pallas/megakernel.py`` (``solve_mega``,
 power cones with accel '' or 'halpern'. :func:`solve_mega` takes the host
 loop's post-setup state (iterated and exact data, preconditioners, seed)
 and returns its ``(u, v, k, status, crits)`` contract. On a CUDA tensor it
-runs the whole loop in one cooperative kernel launch or raises; on a CPU
-tensor it runs :func:`solve_mega_plain`, which is the port's own host loop
+runs the whole loop in one kernel launch or raises; on a CPU tensor it
+runs :func:`solve_mega_plain`, which is the port's own host loop
 (``solver/conic.py``) called with the same inputs.
 
-The launch is planned here, by the pure function :func:`plan`: how many
-CTAs (one per SM), which contiguous rows of A each owns (cut only between
-cone blocks), whether each CTA holds its rows in shared memory, the
-thread layout of the matvec pass and how the cross-CTA sums run. The
-kernel takes the plan as it is.
+:func:`solve_mega_batch` is the same for a batch of lanes (the Pallas
+kernel under ``jax.vmap``): every input has a leading lane dimension, A
+may be one matrix expanded over the lanes, and one launch solves every
+lane, each with its own loop and its own exit. A single solve is a batch
+of one lane on the card. :func:`solve_mega_batch_plain` is its plain
+version: :func:`solve_mega_plain` lane by lane.
+
+The launch is planned here, by the pure functions :func:`plan` (one
+lane: how many CTAs, which contiguous rows of A each owns, cut only
+between cone blocks, whether each CTA holds its rows in shared memory,
+the thread layout of the matvec pass and how the cross-CTA sums run)
+and :func:`plan_batch` (how many CTAs each lane gets so that the launch
+fits the card). The kernel takes the plan as it is.
 """
 
 import ctypes
@@ -28,8 +36,11 @@ from totsu_tpu_torch.ops.kernels import _build
 from totsu_tpu_torch.solver.cone import (ConeLayout, ZERO, RPOS, SOC, RSOC,
                                          EXP, POW)
 
-#: kernel launches since the last reset (CUDA only)
+#: kernel launches since the last reset (CUDA only): ``launches`` by
+#: :func:`solve_mega_cuda` (one solve), ``batch_launches`` by
+#: :func:`solve_mega_batch_cuda` (a batch of lanes)
 launches = 0
+batch_launches = 0
 
 #: Envelope of the kernel: the largest A (f32) it takes. The plan cuts A
 #: into row slices, one per CTA, each held in its SM's shared memory
@@ -68,7 +79,8 @@ TRIP_US = 0.45
 BARRIER_US = 0.7
 
 #: keyword arguments every launch passes to :func:`plan` (``split``,
-#: ``grid``, ``vec_smem``), to time or check a layout the plan would not
+#: ``grid``, ``vec_smem``; through :func:`plan_batch` for a batch, where
+#: ``grid`` is each lane's), to time or check a layout the plan would not
 #: pick; empty by default
 PLAN_OVERRIDES = {}
 
@@ -327,20 +339,96 @@ def local_tables(pl: Plan, tables):
     return kind, blocks, tri, tri_alpha
 
 
+@dataclasses.dataclass(frozen=True)
+class BatchPlan:
+    """A launch over ``lanes`` lanes: each lane runs ``plan`` (its G =
+    ``plan.grid`` CTAs), lane ``l`` being the CTAs of ``blockIdx.y = l``.
+    ``cooperative``: G > 1, so a lane's CTAs meet at grid barriers and
+    the launch must hold every CTA resident at once (``lanes * G <=
+    sm_count``, one CTA per SM); else each lane is one CTA that never
+    waits for another, and the card runs the grid in ``waves`` waves of
+    ``sm_count`` CTAs (one CTA an SM, as for the cooperative launch:
+    ``__launch_bounds__(512, 1)`` lets a CTA take an SM's registers)."""
+    lanes: int
+    plan: Plan
+    sm_count: int
+
+    @property
+    def grid(self) -> int:
+        return self.plan.grid
+
+    @property
+    def ctas(self) -> int:
+        return self.lanes * self.plan.grid
+
+    @property
+    def cooperative(self) -> bool:
+        return self.plan.grid > 1
+
+    @property
+    def waves(self) -> int:
+        return _ceil(self.ctas, self.sm_count)
+
+    def describe(self) -> str:
+        return (f"{self.lanes} lanes x G={self.grid} = {self.ctas} CTAs, "
+                f"{'cooperative' if self.cooperative else 'plain'} launch, "
+                f"{self.waves} wave(s) of at most {self.sm_count} CTAs; "
+                f"per lane: "
+                f"{self.plan.describe()}")
+
+
+def plan_batch(lanes: int, m: int, n: int, tables, sm_count: int,
+               smem_per_block: int, split=None, grid=None,
+               vec_smem=None) -> BatchPlan:
+    """The launch for ``lanes`` lanes of an (m, n) A with the cone
+    ``tables`` on a card of ``sm_count`` SMs and ``smem_per_block`` bytes
+    of opt-in shared memory per block.
+
+    Two regimes. While the lanes fit the SMs (``lanes <= sm_count``), each
+    lane gets the G that :func:`plan`'s cost model picks among 1 to
+    ``sm_count // lanes``: every CTA has an SM of its own, all are
+    resident, and the launch is cooperative where G > 1 (its grid
+    barriers wait for the lane's G CTAs only). Past that, each lane gets
+    one CTA: a lane of one CTA has no barrier, so nothing needs to be
+    resident at once, and the card schedules the CTAs in waves as SMs
+    free up; a lane that stops early frees its SM for the next lane. The
+    other choice, cooperative launches one resident wave at a time, would
+    hold every wave until its slowest lane stops, and cost a launch and a
+    host round trip a wave. ``grid`` forces each lane's G (more than one
+    resident wave raises); ``split`` and ``vec_smem`` pass to
+    :func:`plan`."""
+    if lanes < 1 or sm_count < 1:
+        raise ValueError(f"megakernel plan_batch: lanes={lanes}, "
+                         f"sm={sm_count}")
+    if grid is not None:
+        if grid > 1 and lanes * grid > sm_count:
+            raise ValueError(f"megakernel plan_batch: {lanes} lanes x G="
+                             f"{grid} is not resident on {sm_count} SMs")
+        pl = plan(m, n, tables, sm_count, smem_per_block, split=split,
+                  grid=grid, vec_smem=vec_smem)
+    elif lanes <= sm_count:
+        pl = plan(m, n, tables, sm_count // lanes, smem_per_block,
+                  split=split, vec_smem=vec_smem)
+    else:
+        pl = plan(m, n, tables, sm_count, smem_per_block, split=split,
+                  grid=1, vec_smem=vec_smem)
+    return BatchPlan(lanes=lanes, plan=pl, sm_count=sm_count)
+
+
 class _MegaArgs(ctypes.Structure):
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
             "a", "c_it", "b_it", "c_ex", "b_ex", "dptx", "dpty", "dpts",
-            "dpsx", "dpsy", "ux0", "uy0", "us0", "vn0", "vm0", "kind",
-            "blocks", "tri", "tri_alpha", "ux", "uy", "us", "vn", "vm",
-            "scal_out", "int_out", "scratch", "row_off", "blk_off",
+            "dpsx", "dpsy", "ux0", "uy0", "us0", "vn0", "vm0", "lane_scal",
+            "kind", "blocks", "tri", "tri_alpha", "ux", "uy", "us", "vn",
+            "vm", "scal_out", "int_out", "scratch", "row_off", "blk_off",
             "tri_off", "a_smem", "partials", "barrier")]
         + [(name, ctypes.c_int) for name in (
-            "m", "n", "nb", "nt", "max_iter", "check_period", "halpern",
-            "check_at_start", "grid", "rows_max", "col_threads", "split",
-            "vec_smem", "a_floats", "ws_floats", "ld")]
+            "lanes", "a_shared", "m", "n", "nb", "nt", "max_iter",
+            "check_period", "halpern", "check_at_start", "grid", "rows_max",
+            "col_threads", "split", "vec_smem", "a_floats", "ws_floats",
+            "ld")]
         + [(name, ctypes.c_float) for name in (
-            "dptt", "dpst", "norm_b", "norm_c", "ut0", "v10", "sb", "sc",
             "eps_acc", "eps_inf", "eps_zero", "relax")])
 
 
@@ -371,13 +459,14 @@ def _lib():
     return lib
 
 
-_plans = {}  # (m, n, cone, device, overrides) -> (plan, tensors on the card)
+_plans = {}  # (lanes, m, n, cone, device, overrides) -> plan and tables
 
 
-def device_plan(m: int, n: int, cone: ConeLayout, device):
-    """The plan for an (m, n) problem on ``device`` (a CUDA device), with
-    its tables on the card; cached."""
-    key = (m, n, cone, device, tuple(sorted(PLAN_OVERRIDES.items())))
+def device_plan_batch(lanes: int, m: int, n: int, cone: ConeLayout, device):
+    """``(BatchPlan, plan tensors, cone tables)`` for ``lanes`` lanes of an
+    (m, n) problem on ``device`` (a CUDA device), the tables on the card;
+    cached."""
+    key = (lanes, m, n, cone, device, tuple(sorted(PLAN_OVERRIDES.items())))
     hit = _plans.get(key)
     if hit is None:
         lib = _lib()
@@ -389,14 +478,22 @@ def device_plan(m: int, n: int, cone: ConeLayout, device):
             raise RuntimeError("megakernel: cannot read the card's shared "
                                "memory per block")
         tables = cone_tables(cone)
-        pl = plan(m, n, tables, props.multi_processor_count, smem,
-                  **PLAN_OVERRIDES)
+        bp = plan_batch(lanes, m, n, tables, props.multi_processor_count,
+                        smem, **PLAN_OVERRIDES)
+        pl = bp.plan
         ints = [torch.tensor(np.asarray(x, np.int32), device=device)
                 for x in (pl.row_off, pl.blk_off, pl.tri_off, pl.a_smem)]
         loc = [torch.tensor(t, device=device)
                for t in local_tables(pl, tables)]
-        hit = _plans[key] = (pl, ints, loc)
+        hit = _plans[key] = (bp, ints, loc)
     return hit
+
+
+def device_plan(m: int, n: int, cone: ConeLayout, device):
+    """``(Plan, plan tensors, cone tables)`` of a single solve (a batch of
+    one lane) on ``device``; cached."""
+    bp, ints, loc = device_plan_batch(1, m, n, cone, device)
+    return bp.plan, ints, loc
 
 
 def solve_mega_plain(a, c_it, b_it, c_ex, b_ex, dp_tau, dp_sigma, u0, v0,
@@ -421,38 +518,70 @@ def solve_mega_plain(a, c_it, b_it, c_ex, b_ex, dp_tau, dp_sigma, u0, v0,
                           device=a.device)[:5]
 
 
-def _check_inputs(a, vecs, m, n):
-    if a.dtype != torch.float32 or a.dim() != 2 or tuple(a.shape) != (m, n):
-        raise ValueError("megakernel: A must be an (m, n) f32 tensor")
+def solve_mega_batch_plain(a, c_it, b_it, c_ex, b_ex, dp_tau, dp_sigma, u0,
+                           v0, cone: ConeLayout, *, eps_acc: float,
+                           eps_inf: float, eps_zero: float, max_iter: int,
+                           check_period: int, relax: float = 1.0,
+                           accel: str = "", sb=None, sc=None,
+                           check_at_start: bool = False):
+    """The batch's plain version: :func:`solve_mega_plain` on each lane's
+    inputs, the results stacked (:func:`solve_mega_batch`'s contract)."""
+    outs = []
+    for i in range(a.shape[0]):
+        def lane(t):
+            return None if t is None else t[i]
+
+        outs.append(solve_mega_plain(
+            a[i], c_it[i], b_it[i], c_ex[i], b_ex[i],
+            tuple(map(lane, dp_tau)), tuple(map(lane, dp_sigma)),
+            tuple(map(lane, u0)), tuple(map(lane, v0)), cone,
+            eps_acc=eps_acc, eps_inf=eps_inf, eps_zero=eps_zero,
+            max_iter=max_iter, check_period=check_period, relax=relax,
+            accel=accel, sb=lane(sb), sc=lane(sc),
+            check_at_start=check_at_start))
+    u = tuple(torch.stack([o[0][j] for o in outs]) for j in range(4))
+    v = tuple(torch.stack([o[1][j] for o in outs]) for j in range(3))
+    k = torch.tensor([o[2] for o in outs], dtype=torch.int64,
+                     device=a.device)
+    status = torch.tensor([int(o[3]) for o in outs], dtype=torch.int32,
+                          device=a.device)
+    return u, v, k, status, torch.stack([o[4] for o in outs])
+
+
+def _check_batch(a, vecs, lanes, m, n):
+    if a.dtype != torch.float32 or a.dim() != 3 \
+            or tuple(a.shape) != (lanes, m, n):
+        raise ValueError("megakernel: A must be a (B, m, n) f32 tensor")
+    if not a[0].is_contiguous() or (lanes > 1
+                                     and a.stride(0) not in (0, m * n)):
+        raise ValueError("megakernel: each lane's A must be contiguous, "
+                         "the lanes m n floats apart or all one matrix")
     for name, t, length in vecs:
         if t.dtype != torch.float32 or t.device != a.device:
             raise ValueError(f"megakernel: {name} must be f32 on {a.device}")
-        if tuple(t.shape) != ((length,) if length is not None else ()):
+        want = (lanes, length) if length is not None else (lanes,)
+        if tuple(t.shape) != want:
             raise ValueError(f"megakernel: {name} has shape "
-                             f"{tuple(t.shape)}")
+                             f"{tuple(t.shape)}, not {want}")
         if not t.is_contiguous():
             raise ValueError(f"megakernel: {name} must be contiguous")
-    if not a.is_contiguous():
-        raise ValueError("megakernel: A must be contiguous")
 
 
-def solve_mega_cuda(a, c_it, b_it, c_ex, b_ex, dp_tau, dp_sigma, u0, v0,
-                    cone: ConeLayout, *, eps_acc: float, eps_inf: float,
-                    eps_zero: float, max_iter: int, check_period: int,
-                    relax: float = 1.0, accel: str = "", sb=None, sc=None,
-                    check_at_start: bool = False):
-    """Launch the whole-solve CUDA kernel (CUDA tensors only): one
-    cooperative launch of :func:`device_plan`'s grid; raises when the
-    build or the launch fails (for one, a grid the card cannot hold
-    resident at once)."""
-    global launches
-    if a.device.type != "cuda":
-        raise ValueError("solve_mega_cuda: tensors must be on a CUDA device")
+def _launch(a, c_it, b_it, c_ex, b_ex, dp_tau, dp_sigma, u0, v0,
+            cone: ConeLayout, *, eps_acc: float, eps_inf: float,
+            eps_zero: float, max_iter: int, check_period: int,
+            relax: float = 1.0, accel: str = "", sb=None, sc=None,
+            check_at_start: bool = False):
+    """One launch of the whole-solve CUDA kernel over every lane of
+    lane-leading CUDA tensors, on :func:`device_plan_batch`'s grid; raises
+    when the build or the launch fails (for one, a cooperative grid the
+    card cannot hold resident at once). Reads nothing back to the host and
+    counts nothing: each wrapper counts its own launches."""
     if accel not in ("", "halpern"):
         raise ValueError(f"megakernel: unsupported accel {accel!r}")
     if not supported(cone):
         raise ValueError("megakernel: unsupported cone layout")
-    m, n = a.shape
+    lanes, m, n = a.shape
     if cone.dim != m:
         raise ValueError(f"megakernel: cone dim {cone.dim} != m {m}")
     vecs = [("c_it", c_it, n), ("b_it", b_it, m), ("c_ex", c_ex, n),
@@ -463,27 +592,31 @@ def solve_mega_cuda(a, c_it, b_it, c_ex, b_ex, dp_tau, dp_sigma, u0, v0,
             ("u0[0]", u0[0], n), ("u0[1]", u0[1], m), ("u0[2]", u0[2], m),
             ("u0[3]", u0[3], None), ("v0[0]", v0[0], n), ("v0[1]", v0[1], m),
             ("v0[2]", v0[2], None)]
-    _check_inputs(a, vecs, m, n)
+    _check_batch(a, vecs, lanes, m, n)
     dev = a.device
-    one = torch.ones((), dtype=torch.float32, device=dev)
-    scal = torch.stack([
-        dp_tau[3], dp_sigma[2], torch.linalg.vector_norm(b_ex),
-        torch.linalg.vector_norm(c_ex), u0[3], v0[2],
+    one = torch.ones(lanes, dtype=torch.float32, device=dev)
+    lane_scal = torch.stack([
+        dp_tau[3], dp_sigma[2], torch.linalg.vector_norm(b_ex, dim=-1),
+        torch.linalg.vector_norm(c_ex, dim=-1), u0[3], v0[2],
         one if sb is None else sb.to(torch.float32),
-        one if sc is None else sc.to(torch.float32)]).tolist()
-    pl, (row_off, blk_off, tri_off, a_smem), tables = device_plan(
-        m, n, cone, dev)
+        one if sc is None else sc.to(torch.float32)], dim=-1).contiguous()
+    bp, (row_off, blk_off, tri_off, a_smem), tables = device_plan_batch(
+        lanes, m, n, cone, dev)
+    pl = bp.plan
     kind, blocks, tri, tri_alpha = tables
 
     lib = _lib()
-    out = {name: torch.empty(length, dtype=torch.float32, device=dev)
+    out = {name: torch.empty((lanes, length), dtype=torch.float32,
+                             device=dev)
            for name, length in (("ux", n), ("uy", m), ("us", m), ("vn", n),
                                 ("vm", m), ("scal_out", 7))}
-    int_out = torch.empty(2, dtype=torch.int32, device=dev)
-    scratch = torch.empty(0 if pl.vec_smem else pl.grid * pl.ws_floats,
-                          dtype=torch.float32, device=dev)
-    partials = torch.empty(pl.partials_len, dtype=torch.float32, device=dev)
-    barrier = torch.zeros(1, dtype=torch.int32, device=dev)
+    int_out = torch.empty((lanes, 2), dtype=torch.int32, device=dev)
+    scratch = torch.empty(
+        0 if pl.vec_smem else lanes * pl.grid * pl.ws_floats,
+        dtype=torch.float32, device=dev)
+    partials = torch.empty(lanes * pl.partials_len, dtype=torch.float32,
+                           device=dev)
+    barrier = torch.zeros(lanes, dtype=torch.int32, device=dev)
     args = _MegaArgs(
         a=a.data_ptr(), c_it=c_it.data_ptr(), b_it=b_it.data_ptr(),
         c_ex=c_ex.data_ptr(), b_ex=b_ex.data_ptr(),
@@ -491,8 +624,8 @@ def solve_mega_cuda(a, c_it, b_it, c_ex, b_ex, dp_tau, dp_sigma, u0, v0,
         dpts=dp_tau[2].data_ptr(), dpsx=dp_sigma[0].data_ptr(),
         dpsy=dp_sigma[1].data_ptr(), ux0=u0[0].data_ptr(),
         uy0=u0[1].data_ptr(), us0=u0[2].data_ptr(), vn0=v0[0].data_ptr(),
-        vm0=v0[1].data_ptr(), kind=kind.data_ptr(),
-        blocks=blocks.data_ptr(), tri=tri.data_ptr(),
+        vm0=v0[1].data_ptr(), lane_scal=lane_scal.data_ptr(),
+        kind=kind.data_ptr(), blocks=blocks.data_ptr(), tri=tri.data_ptr(),
         tri_alpha=tri_alpha.data_ptr(),
         **{name: t.data_ptr() for name, t in out.items()},
         int_out=int_out.data_ptr(),
@@ -500,28 +633,76 @@ def solve_mega_cuda(a, c_it, b_it, c_ex, b_ex, dp_tau, dp_sigma, u0, v0,
         row_off=row_off.data_ptr(), blk_off=blk_off.data_ptr(),
         tri_off=tri_off.data_ptr(), a_smem=a_smem.data_ptr(),
         partials=partials.data_ptr() if partials.numel() else None,
-        barrier=barrier.data_ptr(),
-        m=m, n=n, nb=blocks.shape[0], nt=tri.shape[0],
-        max_iter=int(max_iter),
+        barrier=barrier.data_ptr(), lanes=lanes,
+        a_shared=int(a.stride(0) == 0 and lanes > 1), m=m, n=n,
+        nb=blocks.shape[0], nt=tri.shape[0], max_iter=int(max_iter),
         check_period=int(check_period), halpern=int(accel == "halpern"),
         check_at_start=int(bool(check_at_start)), grid=pl.grid,
         rows_max=pl.rows_max, col_threads=pl.col_threads,
         split=int(pl.split), vec_smem=int(pl.vec_smem),
         a_floats=pl.a_floats, ws_floats=pl.ws_floats, ld=pl.ld,
-        dptt=scal[0], dpst=scal[1], norm_b=scal[2], norm_c=scal[3],
-        ut0=scal[4], v10=scal[5], sb=scal[6], sc=scal[7],
         eps_acc=float(eps_acc), eps_inf=float(eps_inf),
         eps_zero=float(eps_zero), relax=float(relax))
     with torch.cuda.device(dev):  # launch on A's card
         rc = lib.totsu_mega_solve(ctypes.byref(args),
                                   torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "megakernel launch")
-    launches += 1
-    k, status = int_out.tolist()
     so = out["scal_out"]
-    u = (out["ux"], out["uy"], out["us"], so[0])
-    v = (out["vn"], out["vm"], so[1])
-    return u, v, k, status, so[2:7]
+    u = (out["ux"], out["uy"], out["us"], so[:, 0])
+    v = (out["vn"], out["vm"], so[:, 1])
+    return u, v, int_out[:, 0].to(torch.int64), int_out[:, 1], so[:, 2:7]
+
+
+def solve_mega_batch_cuda(a, *args, **kwargs):
+    """Launch the whole-solve CUDA kernel over every lane (CUDA tensors
+    only): one launch, counted in ``batch_launches``; raises when the build
+    or the launch fails."""
+    global batch_launches
+    if a.device.type != "cuda":
+        raise ValueError("solve_mega_batch_cuda: tensors must be on a CUDA "
+                         "device")
+    out = _launch(a, *args, **kwargs)
+    batch_launches += 1
+    return out
+
+
+def solve_mega_batch(a, *args, **kwargs):
+    """Run every lane's whole pdhg solve: ``a`` (B, m, n) (one matrix
+    expanded over the lanes is not copied), every other input lane-leading
+    as :func:`solve_mega`'s with a (B,) tensor for each of its scalars (sb
+    and sc (B,) or None). Returns ``(u, v, k (B,), status (B,), crits
+    (B, 5))``, u and v lane-leading. The CUDA kernel for CUDA tensors (one
+    launch), the plain version for CPU tensors."""
+    if a.device.type == "cuda":
+        return solve_mega_batch_cuda(a, *args, **kwargs)
+    if a.device.type == "cpu":
+        return solve_mega_batch_plain(a, *args, **kwargs)
+    raise ValueError(f"megakernel: unsupported device {a.device}")
+
+
+def solve_mega_cuda(a, c_it, b_it, c_ex, b_ex, dp_tau, dp_sigma, u0, v0,
+                    cone: ConeLayout, *, sb=None, sc=None, **kwargs):
+    """Launch the whole-solve CUDA kernel (CUDA tensors only) for one
+    solve: one launch on a batch of one lane, whose plan is :func:`plan`'s,
+    counted in ``launches``; raises when the build or the launch fails."""
+    global launches
+    if a.device.type != "cuda":
+        raise ValueError("solve_mega_cuda: tensors must be on a CUDA device")
+    if a.dim() != 2:
+        raise ValueError("megakernel: A must be an (m, n) f32 tensor")
+
+    def one(t):
+        return None if t is None else t.unsqueeze(0)
+
+    u, v, k, status, crits = _launch(
+        one(a), one(c_it), one(b_it), one(c_ex), one(b_ex),
+        tuple(map(one, dp_tau)), tuple(map(one, dp_sigma)),
+        tuple(map(one, u0)), tuple(map(one, v0)), cone, sb=one(sb),
+        sc=one(sc), **kwargs)
+    launches += 1
+    k, status = torch.stack([k, status.to(torch.int64)], -1)[0].tolist()
+    return (tuple(t[0] for t in u), tuple(t[0] for t in v), k, status,
+            crits[0])
 
 
 def solve_mega(a, *args, **kwargs):

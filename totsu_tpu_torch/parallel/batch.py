@@ -72,7 +72,15 @@ def solve_batch(
       stay terminated with their checkpointed pair, so their ``iters`` and
       solution are those of the unchunked batch; calls continue while any
       lane is still EXCESS_ITER and the total is under
-      ``param.max_iter``.
+      ``param.max_iter``. On the megakernel (``kernel='mega'``) each
+      chunk is one launch; its checkpoint carries no epoch, so a lane
+      resumes with a check at its taken point (a stopped lane stops there
+      at 0 iterations) and a fresh accel epoch, as in the JAX package.
+    * ``kernel='mega'`` (or ``'auto'`` on the card) runs the lanes on the
+      batched megakernel (:func:`solve_batch_jit`); with ``mesh``, each
+      rank's lanes in one launch on its device; a batch whose rows are
+      split over ``row`` raises, as the single solve does with a
+      ``row_sharding``.
     * ``mesh`` (``parallel.make_mesh``): every rank passes the whole
       batch and solves its share of the lanes (:func:`shard_batch` over
       ``batch``); with ``row`` > 1 their A's rows are split over the

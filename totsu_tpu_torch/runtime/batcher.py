@@ -20,7 +20,10 @@ solver:
   (:attr:`BatchRunner.compiled_signatures`), and holds nothing from an
   earlier request;
 * a bucket's requests are solved **in lockstep** on the device
-  (:func:`solve_batch_jit`) and the results scattered back in order;
+  (:func:`solve_batch_jit`: with ``kernel='mega'``, or ``'auto'`` on the
+  card, every lane of a tier in one launch of the batched megakernel)
+  and the results scattered back in order; each prepared solver records
+  the routes its solves took (:attr:`BatchRunner.routes`);
 * :meth:`submit` is the asynchronous front: requests enqueue from any
   thread, a background collector drains the queue every ``flush_ms`` (or
   when ``max_pending`` accumulate) and resolves per-request futures.
@@ -79,15 +82,20 @@ def _tier_chunks(count: int) -> List[Tuple[int, int]]:
 class _Prepared:
     """A batched solver for one (signature, tier, warm, device): the
     layout with its 'auto' PSD methods resolved on one lane's shapes and
-    the parameters. Calling it solves one tier-sized batch."""
+    the parameters. Calling it solves one tier-sized batch; ``routes``
+    collects what ran its solves ('mega': the batched megakernel, 'loop':
+    the lockstep host loop; ``solve_batch_jit``'s ``diag["route"]``)."""
     cone: ConeLayout
     param: SolverParam
     warm: bool
+    routes: set = dataclasses.field(default_factory=set, compare=False)
 
     def __call__(self, cb, ab, bb, wx=None, wy=None) -> SolveResult:
         ws = (wx, wy) if self.warm else None
-        return solve_batch_jit(cb, ab, bb, self.cone, self.param,
-                               warm_start=ws)
+        out = solve_batch_jit(cb, ab, bb, self.cone, self.param,
+                              warm_start=ws)
+        self.routes.add(out.diag["route"])
+        return out
 
 
 def _host(x) -> np.ndarray:
@@ -279,6 +287,16 @@ class BatchRunner:
                 for _, fut in live:
                     if not fut.done():
                         fut.set_exception(exc)
+
+    @property
+    def routes(self) -> Dict[tuple, Tuple[str, ...]]:
+        """Each cached prepared solver's routes so far, by (m, n, tier,
+        warm, device): ('mega',) where the batched megakernel ran its
+        tiers, ('loop',) where the lockstep host loop did."""
+        with self._lock:
+            return {(sig.m, sig.n, tier, warm, device): tuple(sorted(
+                fn.routes)) for (sig, tier, warm, device), fn
+                in self._compiled.items()}
 
     @property
     def compiled_signatures(self) -> int:

@@ -27,7 +27,11 @@ trip count depends on the data:
   per-lane device tensors, so lanes restart at different checks;
 * on the card a pdhg batch without exp, pow, PSD or custom factors runs
   each check period as one CUDA graph (:class:`_Period`); the check and
-  its host read stay eager.
+  its host read stay eager;
+* ``kernel='mega'`` (and ``'auto'`` on the card) runs every lane's whole
+  solve in one launch of the megakernel instead
+  (``megakernel.solve_mega_batch``): each lane iterates and stops on its
+  own, as the JAX package's Pallas kernel does under ``jax.vmap``.
 
 The single-solve functions of ``conic.py`` and ``direct.py`` keep their
 1-D arithmetic; what this module shares with them leaves that arithmetic
@@ -44,7 +48,7 @@ from totsu_tpu_torch.solver import cone as cones
 from totsu_tpu_torch.solver.cone import ConeLayout, resolve_auto_methods
 from totsu_tpu_torch.solver.conic import (ResumeState, SolveResult,
                                           _EPOCH_KEYS, _as_tensor, _log_due,
-                                          _not_ported,
+                                          _mega_choice, _not_ported,
                                           _resolve_fast_profile, _tensors)
 from totsu_tpu_torch.solver.operator import (BatchedDenseOp, LinOp,
                                             as_data, full_f32_matmul)
@@ -550,19 +554,25 @@ def _scale_back(x, y, tau, eps_zero, sb, sc, equil_d, equil_e):
     return x, y
 
 
-def _result(x, y, k, k_start, status, crits, state) -> SolveResult:
+def _result(x, y, k, k_start, status, crits, state,
+            route: str = "loop") -> SolveResult:
+    """The batch's result; ``diag["route"]`` says what ran the lanes:
+    'loop' (this module's lockstep loop) or 'mega' (the megakernel)."""
     return SolveResult(
         x=x, y=y, status=status, iters=k - k_start, cri_pri=crits[:, 0],
         cri_dual=crits[:, 1], cri_gap=crits[:, 2], cri_unbdd=crits[:, 3],
-        cri_infeas=crits[:, 4], state=state)
+        cri_infeas=crits[:, 4], state=state, diag={"route": route})
 
 
 def _checkpoint(param, engine, u, v, k, aux, status, crits):
+    """The batch's ResumeState (with ``return_state``). ``aux`` None means
+    no exportable epoch (the megakernel): an empty dict, as a single
+    solve's megakernel checkpoint."""
     if not param.return_state:
         return None
-    return ResumeState(u=u, v=v, k=k,
-                       aux={**aux, "crits": crits, "status": status},
-                       engine=engine, accel=param.accel)
+    aux = {} if aux is None else {**aux, "crits": crits, "status": status}
+    return ResumeState(u=u, v=v, k=k, aux=aux, engine=engine,
+                       accel=param.accel)
 
 
 def _setup(c, a_op, b, cone, param, default_norm: bool):
@@ -632,6 +642,7 @@ def _solve_pdhg(c, a_op, b, cone, param, warm_start, resume_state):
     if resume_state is not None:
         u0, v0, k_start, resume_aux = _unpack_resume(
             resume_state, "pdhg", param.accel, lanes, device, dtype)
+        taken = (u0, v0)
         if resume_aux is not None \
                 and not _EPOCH_KEYS[param.accel] <= set(resume_aux):
             resume_aux = None
@@ -656,15 +667,28 @@ def _solve_pdhg(c, a_op, b, cone, param, warm_start, resume_state):
     relax = float(param.relax)
     if param.accel == "halpern" and relax != 1.0:
         raise ValueError("accel='halpern' requires relax=1.0")
+    seeded = warm_start is not None or resume_state is not None
+    if _mega_choice(param, a_op, cone, dtype):
+        # as the single solve: a host-loop checkpoint seeds the kernel
+        # from its taken pair, and the kernel checks every seeded start
+        seed_u, seed_v = taken if resume_state is not None else (u0, v0)
+        u, v, k, status, crits = _run_mega(
+            a_op, c_it, b_it, c, b, dp_tau, dp_sigma, seed_u, seed_v, cone,
+            param, lay, sb, sc, effective_eps_inf(param, dtype), relax,
+            check_period, seeded)
+        k = k_start + k
+        ux, uy, _, tau = lay.u(u)
+        x, y = _scale_back(ux, uy, tau, eps_zero, sb, sc, equil_d, equil_e)
+        return _result(x, y, k, k_start, status, crits,
+                       _checkpoint(param, "pdhg", u, v, k, None, status,
+                                   crits), route="mega")
     cap = k_start + param.bounded_max_iter
     update = _make_update(mv_op, c_it, b_it, dp_tau, dp_sigma, cone, relax,
                           lay)
     check = _make_check(a_op, c, b, norm_b, norm_c, sb, sc, param.eps_acc,
                         effective_eps_inf(param, dtype), eps_zero, lay)
-    status, crits = _initial(
-        check, u0, v0, k_start, cap, resume_aux,
-        warm_start is not None or resume_state is not None, lanes, dtype,
-        device)
+    status, crits = _initial(check, u0, v0, k_start, cap, resume_aux,
+                             seeded, lanes, dtype, device)
     u, v, k, status, crits, aux = _LOOPS[param.accel](
         update, check, u0, v0, k_start, cap, status, crits,
         check_period, lay, aux=resume_aux, log_period=param.log_period,
@@ -675,6 +699,42 @@ def _solve_pdhg(c, a_op, b, cone, param, warm_start, resume_state):
     x, y = _scale_back(ux, uy, tau, eps_zero, sb, sc, equil_d, equil_e)
     return _result(x, y, k, k_start, status, crits,
                    _checkpoint(param, "pdhg", u, v, k, aux, status, crits))
+
+
+def _run_mega(a_op, c_it, b_it, c, b, dp_tau, dp_sigma, u0, v0, cone,
+              param, lay: _Layout, sb, sc, eps_inf, relax, check_period,
+              seeded):
+    """Every lane's whole solve on the megakernel
+    (``megakernel.solve_mega_batch``; its plain version on CPU tensors)
+    from the flat iterate and preconditioners of ``lay``: ``(u, v, k,
+    status, crits)``, u and v flat, k each lane's iterations of this
+    call. An A expanded from one matrix stays one matrix."""
+    from totsu_tpu_torch.ops.kernels import megakernel as mk
+    a = a_op.a
+    if not (a.stride(0) == 0 and a[0].is_contiguous()):
+        a = a.contiguous()
+
+    def lane_scalar(t):
+        return None if t is None else t[:, 0].contiguous()
+
+    (ux, uy, us, ut), (vn, vm, kap), k, status, crits = mk.solve_mega_batch(
+        a, c_it.contiguous(), b_it.contiguous(), c.contiguous(),
+        b.contiguous(), _split(lay.u(dp_tau)), _split(lay.v(dp_sigma)),
+        _split(lay.u(u0)), _split(lay.v(v0)), cone, eps_acc=param.eps_acc,
+        eps_inf=eps_inf, eps_zero=float(param.eps_zero),
+        max_iter=param.bounded_max_iter, check_period=check_period,
+        relax=relax, accel=param.accel, sb=lane_scalar(sb),
+        sc=lane_scalar(sc), check_at_start=seeded)
+    u = torch.cat([ux, uy, us, ut[:, None]], dim=-1)
+    v = torch.cat([vn, vm, kap[:, None]], dim=-1)
+    return u, v, k, status, crits
+
+
+def _split(parts):
+    """Segments of a flat iterate as the kernel takes them: each vector
+    segment contiguous, the trailing (B, 1) scalar as (B,)."""
+    return tuple(t.contiguous() for t in parts[:-1]) \
+        + (parts[-1][:, 0].contiguous(),)
 
 
 # ---- the dense direct engine, lane by lane (``solver/direct.py``)
@@ -936,12 +996,18 @@ def solve_batch_jit(c, a, b, cone: ConeLayout,
 
     Every option of ``solve_jit`` is honoured lane by lane or raises:
     ``profile='fast'`` and ``psd(method='auto')`` resolve on one lane's
-    shapes, as inside ``jax.vmap``; ``kernel='auto'``, and the fast
-    profile where it would pick the megakernel, keep this host loop;
-    ``kernel='mega'`` raises (ROADMAP item 14c, a batched megakernel);
-    ``log_period`` prints each lane's line. The host policy of ``solve``
-    (auto-equilibration, the CG warning, polish) does not run, as in the
-    JAX package's ``solve_batch``."""
+    shapes, as inside ``jax.vmap``; ``kernel`` resolves as the single
+    solve's (``conic._mega_choice``) on the batch: ``'mega'`` runs every
+    lane on the megakernel in one launch (its plain version on CPU
+    tensors) and raises outside its envelope (a dense f32 batch, not
+    row-sharded, no ``matvec_dtype``, accel '' or 'halpern', zero/R+/SOC/
+    RSOC/exp/pow cones, each lane's A within ``A_BUDGET_BYTES``);
+    ``'auto'``, and the fast profile where it picks the megakernel, take
+    it on the card inside that envelope without ``log_period``;
+    ``log_period`` prints each lane's line on the host loop. The
+    result's ``diag["route"]`` is 'mega' or 'loop'. The host policy of
+    ``solve`` (auto-equilibration, the CG warning, polish) does not run,
+    as in the JAX package's ``solve_batch``."""
     with full_f32_matmul():
         a_op = as_batched_op(a, device)
         cone = resolve_auto_methods(cone, param)
@@ -957,9 +1023,6 @@ def solve_batch_jit(c, a, b, cone: ConeLayout,
             raise ValueError(f"unknown accel {param.accel!r}")
         if param.kernel not in ("", "auto", "mega"):
             raise ValueError(f"unknown kernel {param.kernel!r}")
-        if param.kernel == "mega":
-            raise _not_ported("kernel='mega' in a batch (a batched "
-                              "megakernel)", "14c")
         c = _as_tensor(c, a_op.device)
         b = _as_tensor(b, a_op.device)
         if param.method == "direct":

@@ -39,8 +39,9 @@ import torch
 
 from totsu_tpu_torch.solver.cone import (ConeLayout, RSOC, EXP, POW, PSD,
                                          resolve_auto_methods)
-from totsu_tpu_torch.solver.operator import (LinOp, DenseOp, as_linop,
-                                            full_f32_matmul, pin_dtype)
+from totsu_tpu_torch.solver.operator import (LinOp, BatchedDenseOp, DenseOp,
+                                            as_linop, full_f32_matmul,
+                                            pin_dtype)
 from totsu_tpu_torch.solver.params import (SolverParam, SolverStatus,
                                            SolverError, effective_eps_inf)
 
@@ -859,14 +860,16 @@ def _mega_choice(param: SolverParam, a_op: LinOp, cone: ConeLayout,
     outside its envelope, and prints no progress lines; 'auto' takes the
     kernel on a CUDA device inside the supported + fitting envelope,
     except with progress logging, where it warns and keeps the host
-    loop."""
+    loop. A batch (``solver/batched.py``) resolves the same way on its
+    :class:`BatchedDenseOp`, each lane's A within the envelope."""
     if param.kernel not in ("", "auto", "mega"):
         raise ValueError(f"unknown kernel {param.kernel!r}")
     if param.kernel == "":
         return False
     from totsu_tpu_torch.ops.kernels import megakernel as mk
     m, n = a_op.shape
-    ok = (type(a_op) is DenseOp and dtype == torch.float32
+    ok = (type(a_op) in (DenseOp, BatchedDenseOp)
+          and dtype == torch.float32
           and param.matvec_dtype is None
           and param.accel in ("", "halpern") and mk.supported(cone)
           and mk.fits(m, n, cone))
