@@ -44,7 +44,13 @@ multihost.init, the n=1000 LP row-sharded on a 1-rank NCCL world and on
 from-tiles blocked-ELL LP, the batch64 cell and the ADMM fleet sharded,
 each against its unsharded solve, with the collectives counted); the
 native C++ engine (phase 35: kernel B against its bisection
-projections, the golden LP).
+projections, the golden LP); batches of structured operators (phase
+38: four banded box LPs as a BatchedOp of BlockedEllOps on the indirect
+engine against HiGHS and their single solves, chunked, and on pdhg
+graphed against eager; eight structured partitioning SDPs with kernel J
+taking every lane's block in each launch; the VStackOp, ScaledOp,
+SparseOp and stencil CustomOp batches against the BlockedEllOp batch;
+the batch-leading differentiable solver's tile cotangents).
 Each phase prints one line of its own
 numbers; any failed check raises, so the script exits non-zero and prints
 no final line. It needs a CUDA device and the repository beside it; it imports
@@ -58,6 +64,7 @@ import atexit
 import contextlib
 import dataclasses
 import io
+import itertools
 import json
 import os
 import re
@@ -1779,6 +1786,10 @@ def sdp_phases(tt, dev, kernels, refs, shapes23=PHASE23_SHAPES,
 
 # ---- phases 27-28: polish and differentiation through solves
 
+#: phase 28d's banded box LP size (phase 21's is 4096: its f64 forward and
+#: backward took 41 s of the script's time limit)
+ELL_N28D = 1024
+
 #: phase 28's LSQR cap. The default 1,000 steps stop far short on the
 #: benchmark LP family (both packages, the CPU: at n = 300 the b gradient
 #: is 62% off after 1,000 steps and exact, 5e-9, after the 12,742 that
@@ -2260,15 +2271,17 @@ def polish_diff_phases(tt, dev, kernels, refs, lp_n=1000, qp_n=50,
           f", {solver32.stats['lsqr_steps']} LSQR steps, launches {cnt_c}; "
           f"{time.perf_counter() - t28c:.1f} s", flush=True)
 
-    # ---- 28d: a structured A: phase 21's banded box LP (n = 4096) as a
-    # BlockedEllOp in f64. The tiles' cotangent (blocks + blocks_t^T) must
-    # be the dense closed form at the same solution and the same LSQR
-    # solve w: -(u_y w_x^T - w_y u_x^T), which with u_tau = 1 is u_y c_bar^T
-    # - b_bar u_x^T (w_tau cancels), from the same backward's c_bar and
-    # b_bar. (A separate dense solve is another LSQR run of about 30,000
-    # steps: its cotangent differed by 4.2e-5 of the largest entry at
-    # eps_acc 1e-9.) The gate is an identity of the cotangent's path, so
-    # the forward stops at eps_acc 1e-6
+    # ---- 28d: a structured A: phase 21's banded box LP (at n = ell_n,
+    # ELL_N28D in the script) as a BlockedEllOp in f64. The tiles'
+    # cotangent (blocks + blocks_t^T) must be the dense closed form at the
+    # same solution and the same LSQR solve w: -(u_y w_x^T - w_y u_x^T),
+    # which with u_tau = 1 is u_y c_bar^T - b_bar u_x^T (w_tau cancels),
+    # from the same backward's c_bar and b_bar. (A separate dense solve is
+    # another LSQR run of about 30,000 steps: its cotangent differed by
+    # 4.2e-5 of the largest entry at eps_acc 1e-9.) The gate is an
+    # identity of the cotangent's path at a complementary pair (y, s), so
+    # the forward stops at eps_acc 1e-6 (at 1e-4 the pair is loose enough
+    # to move it past 1e-8)
     t28d = time.perf_counter()
     c21, a21, b21 = make_banded_box_lp(ell_n)
     ell = tt.BlockedEllOp.from_dense(a21.astype(np.float64),
@@ -3597,6 +3610,428 @@ def native_phase(tt, dev, kernels):
           flush=True)
 
 
+# ---- phase 38: batches of structured operators (BatchedOp) on both
+# engines
+
+
+def highs_box(n, seed):
+    """HiGHS's objective of ``make_banded_box_lp(n, seed=seed)`` in f64
+    (sparse, interior point), its status and seconds (phase 38a's
+    reference, run in a child process beside the card's work)."""
+    from scipy import sparse
+    from scipy.optimize import linprog
+    c, a, b = make_banded_box_lp(n, seed=seed)
+    t0 = time.perf_counter()
+    hi = linprog(c.astype(np.float64),
+                 A_ub=sparse.csr_matrix(a.astype(np.float64)),
+                 b_ub=b.astype(np.float64), bounds=(None, None),
+                 method="highs-ipm")
+    return {"status": hi.status, "fun": hi.fun,
+            "seconds": time.perf_counter() - t0}
+
+
+def start_highs_box(n, seeds):
+    """One child process per seed running :func:`highs_box`, on the CPU
+    only; returns a function that waits for them and returns their
+    results in the seeds' order. The children are stopped on any exit."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--highs-box",
+         json.dumps([n, s])], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+        for s in seeds]
+    for p in procs:
+        atexit.register(stop, p)
+
+    def results():
+        out = []
+        for p in procs:
+            text, err = p.communicate(timeout=600)
+            check(p.returncode == 0, f"HiGHS child failed: {err}")
+            out.append(json.loads(text.strip().splitlines()[-1]))
+        return out
+
+    return results
+
+
+def stencil_csr(w, n):
+    """The stencil CustomOp's matrix (``make_stencil_op``: s = w0 x +
+    w1 roll(x, 1) + w2 roll(x, -1), then the box rows x and -x) as a
+    scipy CSR matrix, (3n, n)."""
+    from scipy import sparse
+    i = np.arange(n)
+    s = sparse.csr_matrix(
+        (np.concatenate([np.full(n, w[0]), np.full(n, w[1]),
+                         np.full(n, w[2])]),
+         (np.concatenate([i, i, i]),
+          np.concatenate([i, (i - 1) % n, (i + 1) % n]))), shape=(n, n))
+    eye = sparse.identity(n, format="csr", dtype=np.float64)
+    return sparse.vstack([s, eye, -eye]).tocsr()
+
+
+def structured_batch_phases(tt, dev, kernels, n38=4096, lanes38=4, k38=48,
+                            lanes38c=8, iters38b=2000, prof38=200,
+                            iters38d=200, n38e=256):
+    """Phase 38: lockstep batches of structured operators (``BatchedOp``)
+    on the card, each path driven once through ``solve_batch`` or the
+    batch-leading differentiable solver, the launch counts set to 0 just
+    before it (the sizes are arguments only so that the flow can be
+    rehearsed small):
+
+    * 38a: ``lanes38`` lanes of phase 21's banded box LP (n = ``n38``, the
+      seeds 0, 1, ...) as ``BatchedOp.stack`` of BlockedEllOps (128 x 128
+      tiles, one structure) on the indirect engine with Halpern to eps_acc
+      1e-3: every lane CONVERGED with its objective within 5e-3 of HiGHS
+      (children beside the card), each lane against its own solve_jit
+      (status, iterations within a check period, x within 1e-3 (1 +
+      |x|inf)), chunks of 100 bitwise the whole batch;
+    * 38b: the same batch on pdhg for ``iters38b`` iterations, its check
+      period a CUDA graph against eager: bitwise; the lane-iterations per
+      second of each and ``prof38`` iterations under the profiler;
+    * 38c: ``lanes38c`` structured partitioning SDPs at k = ``k38`` (the
+      lanes differ in c) on psd 'jacobi' to eps_acc 1e-3: every lane
+      CONVERGED with diag(X) = 1 within eps_acc (1 + ||b||), lanes 0 and
+      the last against their single solves, kernel J taking every lane's
+      block in each launch; its events time at (k38, lanes38c);
+    * 38d: the other forms at 38a's size for ``iters38d`` pdhg
+      iterations, each lane against 38a's BlockedEllOp batch (a VStackOp,
+      a ScaledOp by powers of two: bitwise; a SparseOp; the stencil
+      CustomOp with lane-leading weights, hand and autograd adjoints,
+      against its BlockedEllOp twin), then 2 lanes of the batch-leading
+      differentiable solver at n = ``n38e`` in f64: each lane's tile
+      cotangent against the dense closed form at the same solution.
+
+    Returns the kernels' launch counts over these paths."""
+    from totsu_tpu_torch.ops.kernels import psd_jacobi as pj
+    from totsu_tpu_torch.solver import batched
+    f32, f64 = torch.float32, torch.float64
+    rep = dataclasses.replace
+    counts = {k: 0 for k in kernels}
+    t38 = time.perf_counter()
+    seeds = list(range(lanes38))
+    highs = start_highs_box(n38, seeds)
+
+    def count(runs):
+        for r in runs.values():
+            for k in kernels:
+                counts[k] += r[2][k]
+        return {k: sum(r[2][k] for r in runs.values()) for k in kernels}
+
+    def rel(got, want):
+        return abs(got - want) / max(1.0, abs(want))
+
+    def xerr(r1, r2):
+        """max |x1 - x2| over max(1, |x2|inf), every lane."""
+        d = (r1.x.double() - r2.x.double()).abs().max()
+        return float(d) / max(1.0, float(r2.x.double().abs().max()))
+
+    # ---- 38a: the indirect engine
+    lps = [make_banded_box_lp(n38, seed=s) for s in seeds]
+    cb = torch.from_numpy(np.stack([lp[0] for lp in lps])).to(dev)
+    bb = torch.from_numpy(np.stack([lp[2] for lp in lps])).to(dev)
+    ells = [tt.BlockedEllOp.from_dense(lp[1], block=(128, 128), device=dev)
+            for lp in lps]
+    ellb = tt.BatchedOp.stack(ells)
+    cone = tt.ConeLayout([tt.rpos(3 * n38)])
+    p38a = tt.SolverParam(max_iter=400_000, eps_acc=1e-3, method="direct",
+                          accel="halpern", check_period=20)
+    runs38a = drive({
+        "38a ELL batch, indirect engine": lambda: BatchRun(
+            tt.solve_batch(cb, ellb, bb, cone, p38a)),
+        "38a ELL batch, indirect engine, chunks of 100": lambda: BatchRun(
+            tt.solve_batch(cb, ellb, bb, cone, p38a, chunk_iters=100)),
+    }, kernels)
+    cnt38a = count(runs38a)
+    run_a, wall_a, _, _ = runs38a["38a ELL batch, indirect engine"]
+    res_a = run_a.res
+    res_ac = runs38a["38a ELL batch, indirect engine, chunks of 100"][0].res
+    check(bool((res_a.status == tt.SolverStatus.CONVERGED).all()),
+          f"38a: statuses {res_a.status.tolist()}")
+    check(same_batch(res_ac, res_a), "38a: chunks of 100 differ from the "
+          "whole batch")
+    singles = []
+    for i in seeds:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = tt.solve_jit(cb[i], ells[i], bb[i], cone, p38a)
+        torch.cuda.synchronize()
+        singles.append((one, time.perf_counter() - t0))
+    rows_a = []
+    for i, (one, wall1) in enumerate(singles):
+        x1 = one.x.double().cpu().numpy()
+        err = float(np.abs(res_a.x[i].double().cpu().numpy() - x1).max())
+        bound = 1e-3 * (1.0 + float(np.abs(x1).max()))
+        check(one.status == int(res_a.status[i])
+              and abs(one.iters - int(res_a.iters[i])) <= 20
+              and err <= bound,
+              f"38a lane {i}: status {int(res_a.status[i])}/{one.status}, "
+              f"iterations {int(res_a.iters[i])}/{one.iters}, x error "
+              f"{err:.3e} (limit {bound:.3e})")
+        rows_a.append((i, int(res_a.iters[i]), one.iters, err, bound))
+    objs = [float(np.dot(lp[0].astype(np.float64),
+                         res_a.x[i].double().cpu().numpy()))
+            for i, lp in enumerate(lps)]
+    cg = res_a.diag["cg_steps"] / int(res_a.iters.max())
+    t38b = time.perf_counter()
+
+    # ---- 38b: pdhg, the check period a CUDA graph against eager
+    p38b = tt.SolverParam(max_iter=iters38b, eps_acc=1e-12,
+                          check_period=100)
+    graphed = batched._graphable(cone, dev, ellb)
+    try:
+        runs38b = drive({
+            "38b ELL batch, pdhg graphed": lambda: BatchRun(
+                tt.solve_batch(cb, ellb, bb, cone, p38b)),
+        }, kernels)
+        batched.CUDA_GRAPHS = False
+        runs38b.update(drive({
+            "38b ELL batch, pdhg eager": lambda: BatchRun(
+                tt.solve_batch(cb, ellb, bb, cone, p38b)),
+        }, kernels))
+    finally:
+        batched.CUDA_GRAPHS = True
+    cnt38b = count(runs38b)
+    run_g, wall_g, _, _ = runs38b["38b ELL batch, pdhg graphed"]
+    run_e, wall_e, _, _ = runs38b["38b ELL batch, pdhg eager"]
+    check(same_batch(run_g.res, run_e.res)
+          and bool((run_g.res.iters == iters38b).all()),
+          f"38b: graphed {run_g.res.iters.tolist()} and eager "
+          f"{run_e.res.iters.tolist()} iterations, bitwise "
+          f"{same_batch(run_g.res, run_e.res)}")
+    wall_p, busy_p, nl_p, _ = profile_loop(
+        lambda: tt.solve_batch(cb, ellb, bb, cone,
+                               rep(p38b, max_iter=prof38)), prof38)
+    res_b = run_g.res
+    t38c = time.perf_counter()
+
+    # ---- 38c: kernel J on a structured batch
+    parts = [make_partitioning_structured(k38, seed=10_000 + i)
+             for i in range(lanes38c)]
+    _, _, neg_d, sel, b_sdp = parts[0]
+    sdp_op = tt.BatchedOp.stack([
+        tt.VStackOp((tt.DiagOp(torch.tensor(p[2], device=dev)),
+                     tt.DenseOp(torch.tensor(p[3], device=dev))))
+        for p in parts])
+    c_sdp = torch.tensor(np.stack([p[1] for p in parts]), device=dev)
+    b_sdpt = torch.tensor(np.stack([p[4] for p in parts]), device=dev)
+    cone_c = tt.ConeLayout([tt.psd(k38, method="jacobi"), tt.zero(k38)])
+    p38c = tt.SolverParam(max_iter=200_000, eps_acc=1e-3, profile="fast")
+    shapes_j = []
+    real_j = pj.proj_psd_jacobi
+
+    def recorded(v, *args, **kw):
+        shapes_j.append(tuple(v.reshape(-1, v.shape[-1]).shape))
+        return real_j(v, *args, **kw)
+
+    pj.proj_psd_jacobi = recorded
+    try:
+        runs38c = drive({"38c partitioning SDP batch, jacobi": lambda:
+                         BatchRun(tt.solve_batch(c_sdp, sdp_op, b_sdpt,
+                                                 cone_c, p38c))}, kernels)
+    finally:
+        pj.proj_psd_jacobi = real_j
+    cnt38c = count(runs38c)
+    run_c, wall_c, _, _ = runs38c["38c partitioning SDP batch, jacobi"]
+    res_c = run_c.res
+    check(bool((res_c.status == tt.SolverStatus.CONVERGED).all()),
+          f"38c: statuses {res_c.status.tolist()}")
+    sn = k38 * (k38 + 1) // 2
+    diag_slots = np.nonzero(pack_index(k38)[0] == pack_index(k38)[1])[0]
+    diag_err = float((res_c.x[:, diag_slots].double() - 1.0).abs().max())
+    diag_lim = 1e-3 * (1.0 + float(np.linalg.norm(b_sdp)))
+    check(diag_err <= diag_lim, f"38c: |diag(X) - 1| {diag_err:.2e} > "
+          f"{diag_lim:.2e}")
+    rows_c = []
+    for i in (0, lanes38c - 1):
+        one = tt.solve_jit(c_sdp[i], sdp_op.lane(i), b_sdpt[i], cone_c, p38c)
+        check(one.status == int(res_c.status[i])
+              and abs(one.iters - int(res_c.iters[i])) <= 20,
+              f"38c lane {i}: status {int(res_c.status[i])}/{one.status}, "
+              f"iterations {int(res_c.iters[i])}/{one.iters}")
+        rows_c.append((i, int(res_c.iters[i]), one.iters))
+    on_card = dev.type == "cuda"
+    check(cnt38c["psd_jacobi"] > 0 and all(s == (lanes38c, sn)
+                                           for s in shapes_j),
+          f"38c: kernel J launches {cnt38c['psd_jacobi']}, shapes "
+          f"{sorted(set(shapes_j))} (each should be ({lanes38c}, {sn}))")
+    v_j = torch.tensor(np.random.default_rng(38).normal(
+        size=(lanes38c, sn)), dtype=f32, device=dev)
+    j_ms = stream_ms(lambda: pj.proj_psd_jacobi(v_j), 20)
+    j_bound = psd_jacobi_bound(pj, k38, lanes38c, f32)
+    t38d = time.perf_counter()
+
+    # ---- 38d: the other forms against 38a's BlockedEllOp batch, then the
+    # batch-leading differentiable solver
+    p38d = tt.SolverParam(max_iter=iters38d, eps_acc=1e-12,
+                          check_period=100)
+    ones = torch.ones(lanes38, n38, dtype=f32, device=dev)
+    bands = [tt.BlockedEllOp.from_dense(np.ascontiguousarray(lp[1][:n38]),
+                                        block=(128, 128), device=dev)
+             for lp in lps]
+    alphas = [2.0 ** (i - 1) for i in seeds]
+    forms = {
+        "VStackOp": tt.BatchedOp.stack([
+            tt.VStackOp((bands[i], tt.DiagOp(ones[i]), tt.DiagOp(-ones[i])))
+            for i in seeds]),
+        "ScaledOp": tt.BatchedOp.stack([
+            tt.ScaledOp(alphas[i], rep(ells[i], blocks=ells[i].blocks
+                                       / alphas[i], blocks_t=ells[i].blocks_t
+                                       / alphas[i])) for i in seeds]),
+        "SparseOp": tt.BatchedOp.stack([
+            tt.SparseOp.from_dense(torch.from_numpy(lp[1]).to(dev))
+            for lp in lps]),
+    }
+    paths = {"38d ELL batch": lambda: BatchRun(
+        tt.solve_batch(cb, ellb, bb, cone, p38d))}
+    for name, op in forms.items():
+        paths[f"38d {name} batch"] = lambda op=op: BatchRun(
+            tt.solve_batch(cb, op, bb, cone, p38d))
+    # the stencil LP's operator with each lane's own weights (an order of
+    # make_stencil_op's three, whose hand absolute sums hold for every
+    # order), as a CustomOp (hand and autograd adjoints) and as its
+    # BlockedEllOp twin
+    orders = list(itertools.permutations([1.0, -0.45, -0.55]))
+    weights = [np.array(orders[i % len(orders)], np.float32) for i in seeds]
+    stencil_ops = {}
+    for adj in (True, False):
+        op0 = make_stencil_op(tt, n38, dev, adjoint=adj)
+        stencil_ops[adj] = tt.BatchedOp.stack([
+            rep(op0, params=torch.from_numpy(w).to(dev)) for w in weights])
+    stencil_ell = tt.BatchedOp.stack([
+        tt.BlockedEllOp.from_bsr(stencil_csr(w, n38).astype(np.float32),
+                                 block=(128, 128), device=dev)
+        for w in weights])
+    paths["38d stencil ELL twin batch"] = lambda: BatchRun(
+        tt.solve_batch(cb, stencil_ell, bb, cone, p38d))
+    for adj in (True, False):
+        paths[f"38d stencil CustomOp batch, "
+              f"{'hand' if adj else 'autograd'} adjoint"] = \
+            lambda adj=adj: BatchRun(tt.solve_batch(
+                cb, stencil_ops[adj], bb, cone, p38d))
+    runs38d = drive(paths, kernels)
+    cnt38d = count(runs38d)
+    ref_d = runs38d["38d ELL batch"][0].res
+    ref_s = runs38d["38d stencil ELL twin batch"][0].res
+    errs_d = {}
+    for name, (run, wall, _, _) in runs38d.items():
+        if name in ("38d ELL batch", "38d stencil ELL twin batch"):
+            continue
+        ref = ref_s if "stencil" in name else ref_d
+        err = xerr(run.res, ref)
+        limit = 0.0 if "ScaledOp" in name else 1e-5
+        check(torch.equal(run.res.status, ref.status)
+              and torch.equal(run.res.iters, ref.iters) and err <= limit,
+              f"{name}: statuses {run.res.status.tolist()}, iterations "
+              f"{run.res.iters.tolist()}, x {err:.2e} from the ELL batch "
+              f"(limit {limit:.0e})")
+        errs_d[name[4:-6] if name.endswith(" batch") else name[4:]] = (
+            err, wall)
+    # 2 lanes of the batch-leading differentiable solver in f64
+    lps_e = [make_banded_box_lp(n38e, seed=s) for s in (1, 4)]
+    batch_e = tt.BatchedOp.stack([
+        tt.BlockedEllOp.from_dense(lp[1].astype(np.float64),
+                                   block=(128, 128), device=dev)
+        for lp in lps_e])
+    blk, cols, blk_t, cols_t = batch_e.leaves
+    blk = blk.clone().requires_grad_(True)
+    blk_t = blk_t.clone().requires_grad_(True)
+    op_e = batch_e.with_leaves([blk, cols, blk_t, cols_t])
+    c_e, b_e = (torch.from_numpy(np.stack([lp[j] for lp in lps_e]).astype(
+        np.float64)).to(dev).requires_grad_(True) for j in (0, 2))
+    # as 28d's, the forward stops at eps_acc 1e-6
+    solver_e = tt.make_differentiable_solver(
+        tt.ConeLayout([tt.rpos(3 * n38e)]),
+        tt.SolverParam(method="direct", accel="halpern", check_period=20,
+                       eps_acc=1e-6, max_iter=400_000),
+        lsqr_iters=LSQR_ITERS28)
+    for mod in kernels.values():
+        mod.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x_e, y_e = solver_e(c_e, op_e, b_e)
+    gc_e, gb_e, g_blk, g_blk_t = torch.autograd.grad(
+        (x_e * x_e).sum(), (c_e, b_e, blk, blk_t))
+    torch.cuda.synchronize()
+    wall_e38 = time.perf_counter() - t0
+    for k in kernels:
+        counts[k] += kernels[k].launches
+    errs_e = []
+    for i in range(2):
+        tiles_g, tiles = ell_tile_cotangent(
+            tt, batch_e.lane(i), g_blk[i], g_blk_t[i], 3 * n38e, n38e, 128)
+        dense_g = (torch.outer(y_e[i].detach(), gc_e[i])
+                   - torch.outer(gb_e[i], x_e[i].detach()))
+        scale = float(dense_g.abs().max())
+        err = float((tiles_g - torch.where(tiles, dense_g, 0.0)).abs().max())
+        check(err <= 1e-8 * scale, f"38d lane {i}: tile cotangent "
+              f"{err:.3e} from the dense closed form (limit 1e-8 of "
+              f"{scale:.3e})")
+        errs_e.append(err / scale)
+    t38e = time.perf_counter()
+
+    # the lanes' HiGHS objectives, computed beside the card's work
+    his = highs()
+    wait = time.perf_counter() - t38e
+    for i, hi in enumerate(his):
+        check(hi["status"] == 0 and rel(objs[i], hi["fun"]) <= 5e-3,
+              f"38a lane {i}: objective {objs[i]} vs HiGHS {hi}")
+    print(f"phase 38a {lanes38} lanes of the banded box LP n={n38} (A "
+          f"{3 * n38}x{n38} f32 as BatchedOp.stack of BlockedEllOps, K="
+          f"{ells[0].cols.shape[1]}) on the indirect engine (Halpern, "
+          f"eps_acc 1e-3): CONVERGED at {res_a.iters.tolist()} "
+          f"iterations, {1e3 * wall_a:.1f} ms ({res_a.diag['cg_steps']} "
+          f"lockstep CG steps, {cg:.2f} per DR iteration of the worst "
+          f"lane); objectives vs HiGHS: "
+          + ", ".join(f"{o:.4f}/{hi['fun']:.4f} (rel "
+                      f"{rel(o, hi['fun']):.1e})" for o, hi in zip(objs, his))
+          + f" (HiGHS {max(h['seconds'] for h in his):.1f} s a lane, in "
+          f"children); against their single solves: {fmt_lanes(rows_a)} "
+          f"(singles {', '.join(f'{1e3 * w:.1f}' for _, w in singles)} "
+          f"ms); chunks of 100 bitwise the whole; launches {cnt38a}; 38a "
+          f"took {t38b - t38:.1f} s, set-up included", flush=True)
+    print(f"phase 38b the same batch on pdhg, {iters38b} iterations "
+          f"(check_period 100): the check period "
+          + ("a CUDA graph" if graphed else "eager (not on a card)")
+          + f" {lanes38 * iters38b / wall_g:.1f} lane-iterations/s, eager "
+          f"{lanes38 * iters38b / wall_e:.1f}, bitwise; {prof38} lockstep "
+          f"iterations under the profiler: {nl_p:.1f} launches, "
+          f"{wall_p:.1f} us wall and {100 * busy_p / wall_p:.1f}% busy per "
+          f"iteration; statuses {lanes_summary(res_b)[0]}; launches "
+          f"{cnt38b}; 38b took {t38c - t38b:.1f} s", flush=True)
+    print(f"phase 38c {lanes38c} structured partitioning SDPs k={k38} "
+          f"(VStackOp(DiagOp, DenseOp), the lanes' c from seeds 10000-"
+          f"{10_000 + lanes38c - 1}) on psd 'jacobi', profile='fast' "
+          f"(eps_acc 1e-3): CONVERGED at {res_c.iters.tolist()} "
+          f"iterations, {wall_c:.3f} s; |diag(X) - 1| {diag_err:.1e} (limit "
+          f"{diag_lim:.1e}); lanes "
+          + ", ".join(f"{i}: {bi}/{si}" for i, bi, si in rows_c)
+          + f" iterations batch/single; kernel J {cnt38c['psd_jacobi']} "
+          f"launches, each at (k, count) = ({k38}, {lanes38c}) "
+          f"({cnt38c['psd_jacobi'] / int(res_c.iters.max()):.2f} per "
+          f"lockstep iteration; PR 13's batch at (8, 512): 2 per update); "
+          f"kernel J at ({k38}, {lanes38c}) f32 "
+          + (f"{1e3 * j_ms:.2f} us (events)" if j_ms is not None
+             else "not timed")
+          + f" beside PERF.md's (48, 1) 310.59 us, bound "
+          f"{1e3 * j_bound[0]:.2f} us ({j_bound[1]}); launches {cnt38c}; "
+          f"38c took {t38d - t38c:.1f} s", flush=True)
+    print(f"phase 38d {iters38d} pdhg iterations of {lanes38} lanes at "
+          f"n={n38}, each form against the same lanes' BlockedEllOp batch "
+          f"(x error over max(1, |x|inf)): "
+          + ", ".join(f"{k} {e:.1e} ({1e3 * w:.0f} ms)"
+                      for k, (e, w) in errs_d.items())
+          + f"; batch-leading differentiable solver, 2 lanes n={n38e} "
+          f"f64 BlockedEllOp: tile cotangents "
+          + ", ".join(f"{e:.1e}" for e in errs_e)
+          + f" of max |cotangent| from the dense closed form (limit 1e-8), "
+          f"forward and backward {wall_e38:.2f} s ("
+          f"{solver_e.stats['lsqr_steps']} LSQR steps); launches {cnt38d}; "
+          f"38d took {t38e - t38d:.1f} s, the wait for HiGHS {wait:.1f} s; "
+          f"phase 38 took {time.perf_counter() - t38:.1f} s"
+          + ("" if on_card else " (on the CPU)"), flush=True)
+    return counts
+
+
 def stop(proc):
     """Kill a child process that is still running, and reap it."""
     if proc.poll() is None:
@@ -4783,7 +5218,8 @@ def main():
     # ---- phases 27-28: polish and differentiation through solves
     t27 = time.perf_counter()
     for k, v in polish_diff_phases(tt, dev, kernels, refs,
-                                   grid27=REF_KW["grid27"]).items():
+                                   grid27=REF_KW["grid27"],
+                                   ell_n=ELL_N28D).items():
         main_counts[k] += v
 
     # ---- phases 29-33: lockstep batches, BatchRunner and consensus ADMM
@@ -4807,6 +5243,11 @@ def main():
     for k, v in distribution_phases(tt, dev, kernels).items():
         main_counts[k] += v
     native_phase(tt, dev, kernels)
+
+    # ---- phase 38: batches of structured operators on both engines
+    t38 = time.perf_counter()
+    for k, v in structured_batch_phases(tt, dev, kernels).items():
+        main_counts[k] += v
     # kernel J's launches over every path (phase 28a's DPi builds too), the
     # batched megakernel's over every path (phase 36's six and any other)
     jacobi_record["launches"] = main_counts["psd_jacobi"]
@@ -4819,7 +5260,8 @@ def main():
           f"{t27 - t_start:.1f} s: {t29 - t27:.1f} s, phases 29-33 from "
           f"{t29 - t_start:.1f} s: {t36 - t29:.1f} s, phases 36-37 from "
           f"{t36 - t_start:.1f} s: {t34 - t36:.1f} s, phases 34-35 from "
-          f"{t34 - t_start:.1f} s: {t_end - t34:.1f} s)", flush=True)
+          f"{t34 - t_start:.1f} s: {t38 - t34:.1f} s, phase 38 from "
+          f"{t38 - t_start:.1f} s: {t_end - t38:.1f} s)", flush=True)
 
     primal = cp_main[False]
     record = {"kernels": [
@@ -4863,5 +5305,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cpu-references"]:
         print(json.dumps(cpu_references(**json.loads(sys.argv[2]))))
+    elif sys.argv[1:2] == ["--highs-box"]:
+        print(json.dumps(highs_box(*json.loads(sys.argv[2]))))
     else:
         main()

@@ -182,14 +182,9 @@ def test_batch_skips_the_host_policy():
     assert res.x.dtype == torch.float64 and res.state is None
 
 
-def _raises(fn, item):
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP §1 item {item}\)"):
-        fn()
-
-
 def test_unported_options_raise_naming_their_item():
-    """A batch of structured operators is item 14d; kernel='mega' in a
+    """A structured operator without a lane axis is no batch (ValueError
+    naming BatchedOp.stack, as JAX's vmap refuses it); kernel='mega' in a
     batch solves (the batched megakernel, its plain version here) and
     refuses a row-sharded batch as the single solve refuses a
     row_sharding; every name of the distribution layer works, here on a
@@ -206,8 +201,9 @@ def test_unported_options_raise_naming_their_item():
     assert mega.diag["route"] == "mega" and tuple(mega.iters.shape) == (2,)
     assert (mega.iters == 200).all()
     ell = tt.DiagOp(torch.ones(3, dtype=torch.float64))
-    _raises(lambda: solve_batch(_t(c[:, :3]), ell, _t(b[:, :3]),
-                                tt.ConeLayout([tt.rpos(3)])), "14d")
+    with pytest.raises(ValueError, match=r"no lane axis.*BatchedOp\.stack"):
+        solve_batch(_t(c[:, :3]), ell, _t(b[:, :3]),
+                    tt.ConeLayout([tt.rpos(3)]))
     with pytest.raises(TypeError, match="DeviceMesh"):
         solve_batch(*args, mesh=object())
     with pytest.raises(TypeError, match="DeviceMesh"):

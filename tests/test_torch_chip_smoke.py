@@ -1129,3 +1129,44 @@ def test_batch_mega_and_examples_phases_run_on_the_cpu(monkeypatch, capsys):
     out = capsys.readouterr().out
     for phase in ("36a", "36b", "36c", "36d", "36e", "37"):
         assert f"\nphase {phase} " in out
+
+
+def test_structured_batch_phases_run_on_the_cpu_at_a_small_size(monkeypatch,
+                                                                capsys):
+    # phase 38's flow (every solve, gate and line) at n = 256 and k = 4 on
+    # the CPU, the card's timers stubbed and kernel J's launch standing in
+    # for its plain version (counted as a launch); HiGHS runs in its
+    # children as on the card
+    import totsu_tpu_torch as tt
+    from totsu_tpu_torch.ops.kernels import dual_matvec as dm
+    from totsu_tpu_torch.ops.kernels import megakernel as mk
+    from totsu_tpu_torch.ops.kernels import psd_jacobi as pj
+
+    def timed(fn, *args, **kw):
+        fn()
+        return 1e-3
+
+    def launch(v, scaled=True, sweeps=None):
+        pj.launches += 1
+        return pj.proj_psd_jacobi_plain(v, scaled, sweeps)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **kw: None)
+    monkeypatch.setattr(cs, "stream_ms", timed)
+    monkeypatch.setattr(cs, "profile_loop",
+                        lambda fn, iters: (fn(), (1.0, 0.5, 9.0, []))[1])
+    monkeypatch.setattr(pj, "proj_psd_jacobi",
+                        lambda v, scaled=True, sweeps=None: launch(
+                            v.reshape(-1, v.shape[-1]), scaled,
+                            sweeps).reshape(v.shape))
+    kernels = {"dual_matvec": dm, "megakernel": mk, "cone_proj": cp,
+               "psd_jacobi": pj}
+    counts = cs.structured_batch_phases(
+        tt, torch.device("cpu"), kernels, n38=256, k38=4, iters38b=200,
+        prof38=20, iters38d=50, n38e=256)
+    assert counts["psd_jacobi"] > 0
+    assert {k: v for k, v in counts.items() if k != "psd_jacobi"} == {
+        k: 0 for k in kernels if k != "psd_jacobi"}
+    out = capsys.readouterr().out
+    for phase in ("38a", "38b", "38c", "38d"):
+        assert f"\nphase {phase} " in out
+    assert "chunks of 100 bitwise the whole" in out

@@ -226,9 +226,20 @@ def test_vmapped_batch_gradients():
             lambda b_: sf(_t(c), _t(g), b_), (_t(hb[i]),), (_t(db[i]),))
         np.testing.assert_allclose(dx[i].numpy(), dxi.numpy(), rtol=1e-6,
                                    atol=1e-9)
-    with pytest.raises(NotImplementedError, match=r"item 14d\)"):
-        st(_t(c), tt.DiagOp(torch.ones(3, dtype=torch.float64)),
-           _t(hb[:, :3]))
+    # a structured A shared by the lanes (x <= b with c < 0: x = b, so
+    # d sum(x^2)/d b = 2 b): each lane as its own single solve
+    diag = tt.DiagOp(torch.ones(3, dtype=torch.float64))
+    c3 = _t([-1.0, -2.0, -3.0])
+    gd = _grad(lambda bv: torch.sum(st(c3, diag, bv)[0] ** 2), hb)
+    np.testing.assert_allclose(gd, 2 * hb, rtol=1e-6)
+    xd, _ = st(c3, diag, _t(hb))
+    for i in range(4):
+        xi, _ = st(c3, diag, _t(hb[i]))
+        np.testing.assert_allclose(xd[i].detach().numpy(),
+                                   xi.detach().numpy(), rtol=1e-9,
+                                   atol=1e-12)
+        gi = _grad(lambda bv: torch.sum(st(c3, diag, bv)[0] ** 2), hb[i])
+        np.testing.assert_allclose(gd[i], gi, rtol=1e-6, atol=1e-9)
 
 
 def test_gradients_at_scale_seconds():

@@ -41,7 +41,8 @@ with the cone projections' derivatives in closed form
 
 Many programs of one layout solve in lockstep: :func:`solve_batch`
 (``parallel/batch.py``, each lane its own status, chunked or whole; the
-direct engine or pdhg), :class:`BatchRunner` (``runtime/batcher.py``,
+direct engine or pdhg; a dense A, or structured lanes stacked with
+:meth:`BatchedOp.stack`), :class:`BatchRunner` (``runtime/batcher.py``,
 bucketed microbatches and an asynchronous ``submit``) and
 :func:`consensus_admm` (``parallel/admm.py``).
 
@@ -52,9 +53,6 @@ over a mesh's ``row`` axis (``shard_dense_problem``,
 a batch's lanes or ADMM's agents over its ``batch`` axis.
 ``totsu_tpu_torch.native`` wraps the C++ reference engine
 (``native/totsu_ref.cpp``) on the host.
-
-Not ported yet (ROADMAP.md): a batched megakernel (item 14c) and batches
-of structured operators (item 14d).
 """
 
 from totsu_tpu_torch.solver.params import SolverParam, SolverStatus, SolverError
@@ -65,7 +63,7 @@ from totsu_tpu_torch.solver.cone import (
     ConeLayout, zero, rpos, soc, rsoc, psd, expc, powc, custom,
 )
 from totsu_tpu_torch.solver.operator import (
-    LinOp, DenseOp, BatchedDenseOp, DiagOp, SparseOp, BlockedEllOp, ZeroOp, CustomOp, VStackOp,
+    LinOp, DenseOp, BatchedDenseOp, BatchedOp, DiagOp, SparseOp, BlockedEllOp, ZeroOp, CustomOp, VStackOp,
     HStackOp, BlockOp, ScaledOp, as_linop,
 )
 from totsu_tpu_torch.problems import (
@@ -81,7 +79,7 @@ __all__ = [
     "SolverParam", "SolverStatus", "SolverError", "Solver",
     "solve", "solve_jit", "solve_sequence", "SolveResult", "ResumeState",
     "ConeLayout", "zero", "rpos", "soc", "rsoc", "psd", "expc", "powc", "custom",
-    "LinOp", "DenseOp", "BatchedDenseOp", "DiagOp", "SparseOp", "BlockedEllOp", "ZeroOp", "CustomOp",
+    "LinOp", "DenseOp", "BatchedDenseOp", "BatchedOp", "DiagOp", "SparseOp", "BlockedEllOp", "ZeroOp", "CustomOp",
     "VStackOp", "HStackOp",
     "BlockOp", "ScaledOp", "as_linop",
     "ConicProblem", "ProbLP", "ProbQP", "ProbQCQP", "ProbSOCP", "ProbSDP",

@@ -54,7 +54,7 @@ No reference counterpart.
 
 import contextlib
 import dataclasses
-from typing import Any, Callable, List, Tuple
+from typing import Any, Callable, List
 
 import numpy as np
 import torch
@@ -62,9 +62,10 @@ from torch.autograd.function import once_differentiable
 
 from totsu_tpu_torch.solver.cone import ConeLayout, resolve_auto_methods
 from totsu_tpu_torch.solver.batched import solve_batch_jit
-from totsu_tpu_torch.solver.conic import _not_ported, solve_jit
+from totsu_tpu_torch.solver.conic import solve_jit
 from totsu_tpu_torch.solver.dproj import dproj_at
-from totsu_tpu_torch.solver.operator import (BatchedDenseOp, DenseOp, LinOp,
+from totsu_tpu_torch.solver.operator import (BatchedDenseOp, BatchedOp,
+                                            DenseOp, LinOp, _flatten,
                                             full_f32_matmul, pin_dtype)
 from totsu_tpu_torch.solver.params import SolverParam
 
@@ -164,46 +165,12 @@ def _embed_point(x, y, s):
                                            device=x.device)])
 
 
-def _flatten(obj) -> Tuple[List[torch.Tensor], Callable]:
-    """The floating (strided) tensors inside ``obj`` (a tensor, a LinOp
-    dataclass, tuples, lists and dicts of them) and a function that
-    rebuilds ``obj`` with other tensors in their places."""
-    if isinstance(obj, torch.Tensor):
-        if obj.is_floating_point() and obj.layout == torch.strided:
-            return [obj], lambda ls: ls[0]
-        return [], lambda ls: obj
-    if isinstance(obj, LinOp) and dataclasses.is_dataclass(obj):
-        names = [f.name for f in dataclasses.fields(obj) if f.init]
-        inner, rebuild = _flatten([getattr(obj, k) for k in names])
-        if not inner:
-            return [], lambda ls: obj
-        return inner, lambda ls: dataclasses.replace(
-            obj, **dict(zip(names, rebuild(ls))))
-    if isinstance(obj, dict):
-        keys = list(obj)
-        inner, rebuild = _flatten([obj[k] for k in keys])
-        return inner, lambda ls: dict(zip(keys, rebuild(ls)))
-    if isinstance(obj, (tuple, list)):
-        parts = [_flatten(item) for item in obj]
-        sizes = [len(p[0]) for p in parts]
-        leaves = [t for p in parts for t in p[0]]
-
-        def rebuild(ls):
-            out, off = [], 0
-            for (_, rb), k in zip(parts, sizes):
-                out.append(rb(ls[off:off + k]))
-                off += k
-            return type(obj)(out)
-
-        return leaves, rebuild
-    return [], lambda ls: obj
-
-
 @dataclasses.dataclass
 class _Spec:
     """What the Function needs besides its tensor inputs: the layout, the
     solve's parameters, the mode, LSQR's settings, how to rebuild A from
-    its leaves and whether A is dense."""
+    its leaves, whether A is dense and, for a batch, how its A splits
+    into lanes (:class:`_LaneA`)."""
     cone: ConeLayout
     param: SolverParam
     mode: str
@@ -212,6 +179,7 @@ class _Spec:
     rebuild: Callable
     dense: bool
     stats: dict
+    lanes: Any = None
 
     def operator(self, leaves):
         return self.rebuild(list(leaves))
@@ -250,6 +218,8 @@ class _Spec:
 
     def _a_cotangent(self, leaves, u_x, u_y, w_x, w_y):
         """-grad over A's leaves of w_x . A'u_y - w_y . A u_x."""
+        if not leaves:                  # a sparse A: no leaf takes one
+            return []
         if self.dense:
             (a,) = leaves
             return [-(torch.outer(u_y, w_x) - torch.outer(w_y, u_x)).to(
@@ -381,25 +351,27 @@ class _DiffSolve(torch.autograd.Function):
 
 
 class _DiffSolveBatch(torch.autograd.Function):
-    """(c, b, A) -> (x, y) of a lockstep batch (``solve_batch``; with
-    ``kernel='mega'`` the forward runs on the batched megakernel), each
-    input (B, ...) or shared by every lane; the rule runs each lane's
-    single-solve rule (:class:`_Spec`) and sums a shared input's
-    cotangents over the lanes: the port's form of the JAX package's
-    ``jax.vmap(jax.grad(...))``."""
+    """(c, b, A's leaves) -> (x, y) of a lockstep batch (``solve_batch``;
+    with ``kernel='mega'`` the forward runs on the batched megakernel), c
+    and b (B, ...) or shared by every lane, A's leaves as ``spec.lanes``
+    (:class:`_LaneA`) states them; the rule runs each lane's
+    single-solve rule (:class:`_Spec`) on that lane's leaves and sums a
+    shared input's cotangents over the lanes: the port's form of the JAX
+    package's ``jax.vmap(jax.grad(...))``."""
 
     @staticmethod
-    def forward(spec, c, b, a):
-        lanes = _lanes(c, b, a)
-        res = solve_batch_jit(_expand(c, lanes, 1), _expand(a, lanes, 2),
+    def forward(spec, c, b, *leaves):
+        lanes = _lanes(c, b, spec.lanes)
+        res = solve_batch_jit(_expand(c, lanes, 1),
+                              spec.lanes.batch(leaves, lanes),
                               _expand(b, lanes, 1), spec.cone, spec.param)
         return res.x, res.y
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        spec, c, b, a = inputs
+        spec, c, b, *leaves = inputs
         ctx.spec = spec
-        saved = (c, b, *output, a)
+        saved = (c, b, *output, *leaves)
         if spec.mode == "vjp":
             ctx.save_for_backward(*saved)
         else:
@@ -412,47 +384,107 @@ class _DiffSolveBatch(torch.autograd.Function):
         if spec.mode != "vjp":
             return _DiffSolve.backward(ctx, x_bar, y_bar)
         with _outside_torch_func() as plain:
-            c, b, x, y, a = (plain(t) for t in ctx.saved_tensors)
+            c, b, x, y, *leaves = (plain(t) for t in ctx.saved_tensors)
             x_bar, y_bar = plain(x_bar), plain(y_bar)
             steps, bars = [], []
             for i in range(x.shape[0]):
-                c_bar, b_bar, (a_bar,) = spec.vjp(
+                lane = spec.lanes.spec(spec, i)
+                bars.append(lane.vjp(
                     _lane(c, i, 1), _lane(b, i, 1), x[i], y[i],
-                    [_lane(a, i, 2)], x_bar[i], y_bar[i])
-                bars.append((c_bar, b_bar, a_bar))
+                    spec.lanes.lane(leaves, i), x_bar[i], y_bar[i]))
                 steps.append(spec.stats["lsqr_steps"])
             spec.stats["lsqr_steps"] = steps
-            return (None,) + tuple(_gather([t[j] for t in bars], ref)
-                                   for j, ref in enumerate((c, b, a)))
+            a_bars = [_gather([bar[2][j] for bar in bars], ref)
+                      for j, ref in enumerate(leaves)]
+            return (None, _gather([bar[0] for bar in bars], c),
+                    _gather([bar[1] for bar in bars], b), *a_bars)
 
     @staticmethod
-    def jvp(ctx, _spec_t, dc, db, da):
+    def jvp(ctx, _spec_t, dc, db, *dleaves):
         spec = ctx.spec
         if spec.mode != "jvp":
-            return _DiffSolve.jvp(ctx, _spec_t, dc, db, da)
+            return _DiffSolve.jvp(ctx, _spec_t, dc, db, *dleaves)
         with _outside_torch_func() as plain:
-            c, b, x, y, a = (plain(t) for t in ctx.saved_tensors)
-            dc, db, da = plain(dc), plain(db), plain(da)
+            c, b, x, y, *leaves = (plain(t) for t in ctx.saved_tensors)
+            dc, db = plain(dc), plain(db)
+            dleaves = [plain(t) for t in dleaves]
             steps, outs = [], []
             for i in range(x.shape[0]):
-                outs.append(spec.jvp(
+                lane = spec.lanes.spec(spec, i)
+                outs.append(lane.jvp(
                     _lane(c, i, 1), _lane(b, i, 1), x[i], y[i],
-                    [_lane(a, i, 2)], _lane(dc, i, 1), _lane(db, i, 1),
-                    [_lane(da, i, 2)]))
+                    spec.lanes.lane(leaves, i), _lane(dc, i, 1),
+                    _lane(db, i, 1), spec.lanes.lane(dleaves, i)))
                 steps.append(spec.stats["lsqr_steps"])
             spec.stats["lsqr_steps"] = steps
             return (torch.stack([o[0] for o in outs]),
                     torch.stack([o[1] for o in outs]))
 
 
-def _lanes(c, b, a) -> int:
+class _LaneA:
+    """How a batch's A enters :class:`_DiffSolveBatch`: its floating
+    tensors are the Function's inputs (``leaves``), lane-leading or shared
+    by every lane; ``batch(leaves, lanes)`` is the operator the forward
+    solves, ``lane(leaves, i)`` lane i's leaves and ``spec(spec, i)`` the
+    single-solve rule of lane i (its rebuild)."""
+
+    def __init__(self, a):
+        self.dense = isinstance(a, torch.Tensor)
+        if self.dense:
+            self.leaves = [a]
+            self.shared = a.dim() == 2
+        elif isinstance(a, BatchedOp):
+            self.shared = False
+            self.every = a.leaves
+            self.floating = [j for j, t in enumerate(a.leaves)
+                             if t.is_floating_point()]
+            self.leaves = [a.leaves[j] for j in self.floating]
+            self.op = a
+        else:
+            self.shared = True
+            self.leaves, self.rebuild = _flatten(a)
+            self.op = a
+
+    def _merge(self, every, leaves):
+        out = list(every)
+        for j, t in zip(self.floating, leaves):
+            out[j] = t
+        return out
+
+    def batch(self, leaves, lanes: int) -> Any:
+        if self.dense:
+            return _expand(leaves[0], lanes, 2)
+        if self.shared:
+            return BatchedOp.shared(self.rebuild(list(leaves)), lanes)
+        return self.op.with_leaves(self._merge(self.every, leaves))
+
+    def lane(self, leaves, i: int):
+        if self.shared:
+            return list(leaves)
+        return [None if t is None else t[i] for t in leaves]
+
+    def spec(self, spec, i: int):
+        if self.dense or self.shared:
+            return spec
+        if not self.floating:          # a sparse batch: no leaf to rebuild
+            lane_op = self.op.lane(i)
+            return dataclasses.replace(spec, rebuild=lambda ls: lane_op)
+        every = [t[i] for t in self.every]
+        return dataclasses.replace(
+            spec, rebuild=lambda ls: self.op.lane_of(self._merge(every, ls)))
+
+
+def _lanes(c, b, lanes_a) -> int:
     """The batch's lane count, from whichever input has a lane
     dimension."""
-    for t, rank in ((c, 1), (b, 1), (a, 2)):
-        if t.dim() == rank + 1:
+    if not lanes_a.shared:
+        return lanes_a.op.batch if not lanes_a.dense \
+            else lanes_a.leaves[0].shape[0]
+    for t in (c, b):
+        if t.dim() == 2:
             return t.shape[0]
-    raise ValueError("a batch needs a (B, n) c, a (B, m) b or a (B, m, n) "
-                     "A")
+    raise ValueError("a batch needs a (B, n) c, a (B, m) b or a batched A "
+                     "((B, m, n), BatchedDenseOp or BatchedOp)")
 
 
 def _expand(t, lanes, rank):
@@ -505,24 +537,27 @@ class DifferentiableSolver:
         return _DiffSolve.apply(spec, c, b, *leaves)
 
     def _batch(self, c, a, b):
-        """A lockstep batch: c (B, n) or (n,), A (B, m, n) or (m, n) dense,
-        b (B, m) or (m,), at least one with lanes; x (B, n), y (B, m)."""
+        """A lockstep batch: c (B, n) or (n,), b (B, m) or (m,), A (B, m,
+        n) or (m, n) dense, a :class:`BatchedOp` (the counterpart of
+        ``jax.vmap(solver)`` over a stacked pytree) or a structured LinOp
+        shared by every lane (``jax.vmap(solver, in_axes=(0, None, 0))``),
+        at least one with lanes; x (B, n), y (B, m)."""
         if isinstance(a, (DenseOp, BatchedDenseOp)):
             a = a.a
-        if not isinstance(a, torch.Tensor):
-            raise _not_ported(f"a batch of structured operators "
-                              f"({type(a).__name__}) in "
-                              "make_differentiable_solver", "14d")
+        lanes_a = _LaneA(a)
         spec = _Spec(self.cone, self.param, self.mode, self.lsqr_iters,
-                     self.lsqr_rtol, lambda ls: DenseOp(ls[0]), True,
-                     self.stats)
-        return _DiffSolveBatch.apply(spec, c, b, a)
+                     self.lsqr_rtol,
+                     (lambda ls: DenseOp(ls[0])) if lanes_a.dense
+                     else getattr(lanes_a, "rebuild", None),
+                     lanes_a.dense, self.stats, lanes_a)
+        return _DiffSolveBatch.apply(spec, c, b, *lanes_a.leaves)
 
 
 def _is_batch(c, a, b) -> bool:
-    """Whether the inputs carry a lane dimension: a (B, n) c, a (B, m) b
-    or a (B, m, n) A."""
-    return (c.dim() == 2 or b.dim() == 2 or isinstance(a, BatchedDenseOp)
+    """Whether the inputs carry a lane dimension: a (B, n) c, a (B, m) b,
+    a (B, m, n) A or a batch operator."""
+    return (c.dim() == 2 or b.dim() == 2
+            or isinstance(a, (BatchedDenseOp, BatchedOp))
             or (isinstance(a, torch.Tensor) and a.dim() == 3))
 
 
@@ -537,7 +572,10 @@ def make_differentiable_solver(cone: ConeLayout,
     matrix-free), whose cotangent or tangent lives in its own floating
     tensors (a ``BlockedEllOp``'s ``blocks`` and ``blocks_t`` each take
     their pass's half: combine as ``blocks + transpose(blocks_t)`` when
-    updating one underlying A; a ``CustomOp``'s ``params``). The solve
+    updating one underlying A; a ``CustomOp``'s ``params``). A batch
+    takes a (B, n) c or (B, m) b with a (B, m, n) A, a ``BatchedOp``
+    (each lane's cotangent on its own tensors) or one operator shared by
+    the lanes (its cotangent the lanes' sum). The solve
     runs where the data lies (``solve_jit``; it never raises: check
     convergence yourself when it matters), and so does the rule.
 

@@ -98,7 +98,8 @@ def resume_state_from_reference(state, *, device=None, dtype=None
                        engine=state.engine, accel=state.accel)
 
 
-def operator_from_reference(op, *, device=None, dtype=None) -> op_.LinOp:
+def operator_from_reference(op, *, device=None, dtype=None, batch=None
+                            ) -> op_.LinOp:
     """The port's operator from a JAX one, field by field through numpy
     (arrays to ``device``, default the CUDA card, floating data in
     ``dtype``, default its own): ``DenseOp`` (and ``PallasDenseOp``),
@@ -106,15 +107,35 @@ def operator_from_reference(op, *, device=None, dtype=None) -> op_.LinOp:
     ``BlockedEllOp`` (its tiles into the port's layout, the same slots and
     indices) and ``SparseOp`` (the BCOO coordinate list less its padding;
     coalesced when the BCOO says its indices are unique). A ``CustomOp``
-    holds JAX functions and cannot cross."""
+    holds JAX functions and cannot cross.
+
+    ``batch=B`` takes a batch-leading pytree (every array with a leading
+    lane axis of B, a ``ScaledOp``'s alpha (B,), a ``SparseOp``'s BCOO
+    batched with ``n_batch=1``) and returns the port's batch:
+    ``BatchedOp.stack`` of its lanes (a ``BatchedDenseOp`` for a
+    ``DenseOp``, the block-diagonal ``BatchedSparseOp`` for a
+    ``SparseOp``)."""
     dev = target_device(device)
+    if batch is None:
+        return _from_reference(op, dev, dtype, None)
+    return op_.BatchedOp.stack([_from_reference(op, dev, dtype, i)
+                                for i in range(batch)])
+
+
+def _from_reference(op, dev, dtype, lane):
+    """The port's operator from a JAX one; ``lane`` None for a single
+    operator, else the lane of a batch-leading one."""
     tdt = None if dtype is None else as_dtype(dtype)
 
+    def arr(x):
+        x = np.array(x)
+        return x if lane is None else x[lane]
+
     def data(x):
-        return torch.as_tensor(np.array(x), dtype=tdt, device=dev)
+        return torch.as_tensor(arr(x), dtype=tdt, device=dev)
 
     def child(o):
-        return operator_from_reference(o, device=dev, dtype=dtype)
+        return _from_reference(o, dev, dtype, lane)
 
     kind = type(op).__name__
     if kind in ("DenseOp", "PallasDenseOp"):
@@ -126,22 +147,23 @@ def operator_from_reference(op, *, device=None, dtype=None) -> op_.LinOp:
     if kind in ("VStackOp", "HStackOp"):
         return getattr(op_, kind)(tuple(child(o) for o in op.ops))
     if kind == "ScaledOp":
-        return op_.ScaledOp(float(np.asarray(op.alpha)), child(op.op))
+        return op_.ScaledOp(float(arr(op.alpha)), child(op.op))
     if kind == "BlockedEllOp":
         ell = op_.BlockedEllOp.from_slots(
-            op.blocks, op.cols, op.blocks_t, op.cols_t, m=op.m, n=op.n,
-            bm=op.bm, bn=op.bn, device=dev)
+            arr(op.blocks), arr(op.cols), arr(op.blocks_t), arr(op.cols_t),
+            m=op.m, n=op.n, bm=op.bm, bn=op.bn, device=dev)
         return ell if tdt is None else ell.astype(tdt)
     if kind == "SparseOp":
         mat = op.mat
-        shape = tuple(mat.shape)
-        idx = np.asarray(mat.indices).reshape(-1, 2)
-        vals = np.asarray(mat.data).reshape(-1)
+        shape = tuple(mat.shape)[-2:]
+        idx = arr(mat.indices).reshape(-1, 2)
+        vals = arr(mat.data).reshape(-1)
         # BCOO pads with out-of-range coordinates (and zero data)
         keep = (idx[:, 0] < shape[0]) & (idx[:, 1] < shape[1])
         coo = torch.sparse_coo_tensor(
             torch.as_tensor(idx[keep].T.astype(np.int64), device=dev),
-            data(vals[keep]), shape, check_invariants=False)
+            torch.as_tensor(vals[keep], dtype=tdt, device=dev), shape,
+            check_invariants=False)
         if mat.unique_indices:
             coo = coo.coalesce()  # unique: coalescing sums nothing
         return op_.SparseOp(coo)

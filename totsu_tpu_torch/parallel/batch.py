@@ -21,15 +21,16 @@ from totsu_tpu_torch.parallel.sharded import (RowShardedOp, RowSharding,
 from totsu_tpu_torch.solver.batched import as_batched_op, solve_batch_jit
 from totsu_tpu_torch.solver.cone import ConeLayout
 from totsu_tpu_torch.solver.conic import SolveResult, _as_tensor
-from totsu_tpu_torch.solver.operator import BatchedDenseOp
+from totsu_tpu_torch.solver.operator import BatchedDenseOp, BatchedOp
 from totsu_tpu_torch.solver.params import SolverParam, SolverStatus
 
 
 def shard_batch(tree, mesh, axis: str = "batch"):
-    """This rank's share of a batch-leading tree (tensors, arrays or
-    :class:`BatchedDenseOp`s in tuples or lists; None passes): rank
-    i of ``axis`` takes lanes ``[i B/size, (i + 1) B/size)``. A batch that
-    does not split evenly raises ``ValueError``, as the JAX package's
+    """This rank's share of a batch-leading tree (tensors, arrays,
+    :class:`BatchedDenseOp` s or :class:`BatchedOp` s in tuples or lists;
+    None passes): rank i of ``axis`` takes lanes ``[i B/size, (i + 1)
+    B/size)`` (a structured batch through ``BatchedOp.lanes``). A batch
+    that does not split evenly raises ``ValueError``, as the JAX package's
     ``device_put`` does."""
     axis_size(mesh, axis)      # a mesh with this axis, else it raises
     i = mesh.get_local_rank(axis)
@@ -41,7 +42,10 @@ def shard_batch(tree, mesh, axis: str = "batch"):
             return type(x)(put(t) for t in x)
         if isinstance(x, BatchedDenseOp):
             return BatchedDenseOp(put(x.a))
-        off = even_split(mesh, axis, x.shape[0], "lanes")
+        lanes = x.batch if isinstance(x, BatchedOp) else x.shape[0]
+        off = even_split(mesh, axis, lanes, "lanes")
+        if isinstance(x, BatchedOp):
+            return x.lanes(off[i], off[i + 1])
         return x[off[i]:off[i + 1]]
 
     return put(tree)
@@ -61,9 +65,12 @@ def solve_batch(
 ) -> SolveResult:
     """Solve a batch of conic programs in lockstep.
 
-    * ``c``: (B, n), ``a``: (B, m, n) tensor, array or
+    * ``c``: (B, n), ``a``: (B, m, n) tensor, array,
       :class:`BatchedDenseOp` (an A expanded from one matrix is not
-      copied), ``b``: (B, m); the cone layout and ``param`` are shared.
+      copied) or :class:`BatchedOp` of structured lanes
+      (``BatchedOp.stack``: pdhg, or the indirect engine under
+      ``method='direct'``), ``b``: (B, m); the cone layout and ``param``
+      are shared.
       Data that is not a tensor goes to ``device``, else to the CUDA card;
       c and b follow A.
     * ``warm_start``: (X (B, n) or None, Y (B, m) or None).
@@ -84,7 +91,9 @@ def solve_batch(
     * ``mesh`` (``parallel.make_mesh``): every rank passes the whole
       batch and solves its share of the lanes (:func:`shard_batch` over
       ``batch``); with ``row`` > 1 their A's rows are split over the
-      ``row`` group (``parallel.sharded.RowShardedOp``). Each rank stops
+      ``row`` group (``parallel.sharded.RowShardedOp``; a dense batch
+      only: a structured one raises ``ValueError`` there, as the JAX
+      package shards a batch over ``batch`` alone). Each rank stops
       when its own lanes stop, so no collective runs across ``batch``
       inside the loop; x, y, the criteria, ``status`` and ``iters`` are
       then gathered over ``batch`` (two collectives) and are whole on
@@ -133,13 +142,16 @@ def _solve_batch_mesh(c, a, b, cone, param, mesh, warm_start, chunk_iters,
     lanes gathered over ``batch``."""
     rows = axis_size(mesh, "row")
     a = as_batched_op(a, device)
-    if not isinstance(a, BatchedDenseOp):
+    if not isinstance(a, (BatchedDenseOp, BatchedOp)):
         raise TypeError("solve_batch(mesh=) takes the whole batch's A, not "
                         "a sharded one")
+    if rows > 1 and isinstance(a, BatchedOp):
+        raise ValueError(
+            "a structured batch shards over the mesh's batch axis only; "
+            "row > 1 splits the rows of a dense batch")
     c = _as_tensor(c, a.device)
     b = _as_tensor(b, a.device)
-    lanes = a.batch
-    offsets = even_split(mesh, "batch", lanes, "lanes")
+    offsets = even_split(mesh, "batch", a.batch, "lanes")
     c, a, b, warm_start = shard_batch((c, a, b, warm_start), mesh)
     if rows > 1:
         sharding = RowSharding(mesh, "row",

@@ -15,9 +15,9 @@ trip count depends on the data:
   norms) are (B, 1) tensors, its status (B,) int32 and its criteria
   (B, 5), all on the device;
 * the products are per lane (:class:`BatchedDenseOp`: two ``torch.bmm``,
-  in full f32), and the cone projections take the B x count blocks of a
-  factor in one call (one launch of kernel B for exp and pow, of kernel J
-  for 'jacobi');
+  in full f32; :class:`BatchedOp` for structured lanes), and the cone
+  projections take the B x count blocks of a factor in one call (one
+  launch of kernel B for exp and pow, of kernel J for 'jacobi');
 * the loop runs ``check_period`` updates of every lane, one check, and
   keeps each lane's new carry only where that lane was still running
   (``torch.where`` on the lane mask); one host read per check tells it
@@ -25,9 +25,13 @@ trip count depends on the data:
   compacted: a stopped lane still costs its share of every product;
 * the Halpern weights, the restart epochs and the artificial restart are
   per-lane device tensors, so lanes restart at different checks;
-* on the card a pdhg batch without exp, pow, PSD or custom factors runs
-  each check period as one CUDA graph (:class:`_Period`); the check and
-  its host read stay eager;
+* on the card a pdhg batch without exp, pow, PSD or custom factors (and
+  without a ``CustomOp`` or ``SparseOp`` in its operator) runs each
+  check period as one CUDA graph (:class:`_Period`); the check and its
+  host read stay eager;
+* ``method='direct'`` runs the dense direct engine lane by lane on a
+  dense batch, the indirect engine (:class:`IndirectSolveBatch`, each
+  lane's CG) on any other;
 * ``kernel='mega'`` (and ``'auto'`` on the card) runs every lane's whole
   solve in one launch of the megakernel instead
   (``megakernel.solve_mega_batch``): each lane iterates and stops on its
@@ -48,10 +52,12 @@ from totsu_tpu_torch.solver import cone as cones
 from totsu_tpu_torch.solver.cone import ConeLayout, resolve_auto_methods
 from totsu_tpu_torch.solver.conic import (ResumeState, SolveResult,
                                           _EPOCH_KEYS, _as_tensor, _log_due,
-                                          _mega_choice, _not_ported,
+                                          _mega_choice,
                                           _resolve_fast_profile, _tensors)
-from totsu_tpu_torch.solver.operator import (BatchedDenseOp, LinOp,
-                                            as_data, full_f32_matmul)
+from totsu_tpu_torch.solver.direct import cg_settings
+from totsu_tpu_torch.solver.operator import (
+    BatchedDenseOp, BatchedOp, BatchedSparseOp, BlockedEllOp, DenseOp, DiagOp,
+    HStackOp, LinOp, ScaledOp, VStackOp, ZeroOp, as_data, full_f32_matmul)
 from totsu_tpu_torch.solver.params import (SolverParam, SolverStatus,
                                            effective_eps_inf)
 
@@ -60,15 +66,17 @@ _EXCESS = int(SolverStatus.EXCESS_ITER)
 
 
 def as_batched_op(a, device=None) -> LinOp:
-    """A (B, m, n) tensor or array, or a :class:`BatchedDenseOp` (or one
-    row-sharded over a mesh, ``parallel.sharded.RowShardedOp``), as the
-    batch's operator. A structured operator with a leading batch (the JAX
-    package vmaps any LinOp pytree) raises, naming its ROADMAP item."""
-    if isinstance(a, BatchedDenseOp) or _sharded(a):
+    """A (B, m, n) tensor or array, a :class:`BatchedDenseOp` (or one
+    row-sharded over a mesh, ``parallel.sharded.RowShardedOp``) or a
+    :class:`BatchedOp` of structured lanes, as the batch's operator. A
+    structured operator without a lane axis raises ``ValueError``, as
+    ``jax.vmap`` refuses a leaf without the batch's leading size."""
+    if isinstance(a, (BatchedDenseOp, BatchedOp)) or _sharded(a):
         return a
     if isinstance(a, LinOp):
-        raise _not_ported(f"a batch of structured operators "
-                          f"({type(a).__name__})", "14d")
+        raise ValueError(
+            f"a batch needs lane-leading operators: {type(a).__name__} has "
+            "no lane axis (stack the lanes with BatchedOp.stack)")
     a = as_data(a, device, "A")
     if a.dim() != 3:
         raise ValueError(f"a batch needs A as (B, m, n), got "
@@ -108,16 +116,40 @@ def _sel(mask, new, old):
 CUDA_GRAPHS = True
 
 
-def _graphable(cone: ConeLayout, device) -> bool:
+def _graphable(cone: ConeLayout, device, a_op: Optional[LinOp] = None
+               ) -> bool:
     """Whether a pdhg batch's check period runs as one CUDA graph: on a
-    CUDA device, with only zero, R+, SOC and RSOC factors. Their
-    projections are PyTorch operations without a host read; an exp, pow,
-    PSD or custom factor keeps the eager loop, so that kernels B and J
-    launch from their wrappers (which count each launch) and an 'eigh'
-    projection may read the host."""
+    CUDA device, with only zero, R+, SOC and RSOC factors and (given
+    ``a_op``) an operator whose products read nothing on the host
+    (:func:`_graph_safe`). Those projections are PyTorch operations
+    without a host read; an exp, pow, PSD or custom factor keeps the eager
+    loop, so that kernels B and J launch from their wrappers (which count
+    each launch) and an 'eigh' projection may read the host."""
     return (CUDA_GRAPHS and torch.device(device).type == "cuda"
+            and (a_op is None or _graph_safe(a_op))
             and all(f.kind in (cones.ZERO, cones.RPOS, cones.SOC,
                                cones.RSOC) for f in cone.factors))
+
+
+def _graph_safe(a_op: LinOp) -> bool:
+    """A dense batch, or a structured one whose every operator is a
+    dense, blocked-ELL, diagonal, zero, scaled or stacked one. A
+    ``CustomOp`` runs user code, which may read the host, and a
+    ``SparseOp``'s SpMV is not bitwise on repeat (PERF.md §6): both keep
+    the eager loop."""
+    if isinstance(a_op, BatchedDenseOp):
+        return True
+    if not isinstance(a_op, BatchedOp):
+        return False
+
+    def safe(op):
+        if isinstance(op, (VStackOp, HStackOp)):
+            return all(safe(o) for o in op.ops)
+        if isinstance(op, ScaledOp):
+            return safe(op.op)
+        return isinstance(op, (BlockedEllOp, DenseOp, DiagOp, ZeroOp))
+
+    return not isinstance(a_op, BatchedSparseOp) and safe(a_op.template)
 
 
 class _Period:
@@ -167,7 +199,7 @@ def _codes(device):
             for s in SolverStatus}
 
 
-def _precond(a_op: BatchedDenseOp, c, b, cone: ConeLayout, eps_zero: float):
+def _precond(a_op: LinOp, c, b, cone: ConeLayout, eps_zero: float):
     """Each lane's diagonal preconditioners (``conic._precond``)."""
     col_a = a_op.col_abssum()
     row_a = a_op.row_abssum()
@@ -316,11 +348,13 @@ def _pdhg_line(k, p, d, g, ub, inf):
 
 
 def _run_plain(update, check, u, v, k, cap, status, crits, check_period,
-               lay=None, aux=None, log_period=0, graph=False):
+               lay=None, aux=None, log_period=0, graph=False, carry=None):
     """The plain loop (``conic._run_plain``) over lanes: ``u``, ``v`` are
     lane-leading tensors (the flat pdhg iterate, or the direct engine's
     u and v); ``lay`` is unused; ``graph`` runs each check period as a
-    CUDA graph (:class:`_Period`)."""
+    CUDA graph (:class:`_Period`); ``carry`` (the indirect engine's
+    :class:`IndirectSolveBatch`) holds state of its own that a stopped
+    lane keeps, bracketed by ``begin(run)`` and ``end()`` each period."""
 
     def body(un, vn):
         for _ in range(check_period):
@@ -330,9 +364,13 @@ def _run_plain(update, check, u, v, k, cap, status, crits, check_period,
     period = _Period(body, graph)
     run = _running(status, k, cap)
     while bool(run.any()):
+        if carry is not None:
+            carry.begin(run)
         un, vn = period(u, v)
         kn = k + check_period
         st, cr = check(un, vn, kn, cap)
+        if carry is not None:
+            carry.end()
         u, v = _sel(run, un, u), _sel(run, vn, v)
         k = torch.where(run, kn, k)
         status = torch.where(run, st, status)
@@ -694,7 +732,7 @@ def _solve_pdhg(c, a_op, b, cone, param, warm_start, resume_state):
         check_period, lay, aux=resume_aux, log_period=param.log_period,
         # a row-sharded A's collectives are counted on the host, and
         # gloo's cannot be captured: its batch stays eager
-        graph=_graphable(cone, device) and not _sharded(a_op))
+        graph=_graphable(cone, device, a_op))
     ux, uy, _, tau = lay.u(u)
     x, y = _scale_back(ux, uy, tau, eps_zero, sb, sc, equil_d, equil_e)
     return _result(x, y, k, k_start, status, crits,
@@ -737,7 +775,8 @@ def _split(parts):
         + (parts[-1][:, 0].contiguous(),)
 
 
-# ---- the dense direct engine, lane by lane (``solver/direct.py``)
+# ---- the direct engine, lane by lane (``solver/direct.py``): the dense
+# cached solve, or the indirect mode's CG
 
 def newton_schulz_inverse(spd):
     """Each lane's Newton-Schulz inverse of a (B, n, n) SPD batch
@@ -811,10 +850,117 @@ class SpdSolveBatch:
         return torch.bmm(self.factor, r.unsqueeze(-1)).squeeze(-1)
 
 
+def _cg(apply_fn, rhs, x0, rel_tol: float, max_cg: int, inv_diag=None,
+        active=None):
+    """Each lane's warm-started (Jacobi-preconditioned with ``inv_diag``)
+    conjugate gradient (``direct._cg``), as a vmapped ``lax.while_loop``
+    runs it: a lane steps while its own ``rr > tol2`` and its steps are
+    under ``max_cg`` (and it is in ``active``, a (B,) mask, when given); a
+    lane that has stopped keeps x, r, p and rz exactly; the loop runs
+    until no lane steps, one host read per step. Returns ``(x, rel2 (B,),
+    lockstep steps)``."""
+    r = rhs - apply_fn(x0)
+    den = torch.clamp(_vdot(rhs, rhs), min=torch.finfo(rhs.dtype).tiny)
+    tol2 = (rel_tol ** 2) * den
+
+    def prec(res):
+        return res if inv_diag is None else res * inv_diag
+
+    x = x0
+    z = prec(r)
+    p = z
+    rz = _vdot(r, z)
+    rr = rz if inv_diag is None else _vdot(r, r)
+    steps = torch.zeros(x0.shape[0], dtype=torch.int64, device=x0.device)
+
+    def stepping():
+        act = (rr > tol2)[:, 0] & (steps < max_cg)
+        return act if active is None else act & active
+
+    act = stepping()
+    lock = 0
+    while bool(act.any()):
+        ap = apply_fn(p)
+        alpha = rz / _vdot(p, ap)
+        xn = x + alpha * p
+        rn = r - alpha * ap
+        zn = prec(rn)
+        rz_new = _vdot(rn, zn)
+        rr_new = rz_new if inv_diag is None else _vdot(rn, rn)
+        pn = zn + (rz_new / rz) * p
+        x, r, p, rz, rr = _sel(act, (xn, rn, pn, rz_new, rr_new),
+                               (x, r, p, rz, rr))
+        steps = steps + act.to(steps.dtype)
+        lock += 1
+        act = stepping()
+    return x, (rr / den)[:, 0], lock
+
+
+class IndirectSolveBatch:
+    """Each lane's indirect-mode M-solve (``direct.IndirectSolve``):
+    warm-started CG on I + A_i^T A_i for a structured batch, the settings
+    of the single solve (``direct.cg_settings``: ``cg_tol``, ``max_cg =
+    min(n, 500)``, the tighter border solve, Jacobi PCG from each lane's
+    ``col_sqsum`` under 'auto' or 'jacobi', plain CG for a ``CustomOp``).
+    ``ws = (z1 (B, n), worst_rel2 (B,))`` is each lane's warm start and
+    worst residual. The loops bracket each check period with
+    :meth:`begin` and :meth:`end`: a lane outside the period's running
+    mask takes no CG step and keeps its ``ws``, as a stopped lane of the
+    JAX package's vmapped loop keeps its carry. ``steps`` counts lockstep
+    CG steps (each one product of every lane), ``solves`` the batched
+    resolvents."""
+
+    def __init__(self, a_op, n: int, dtype, device, param: SolverParam,
+                 lanes: int, ws=None):
+        self.a_op = a_op
+        cg_settings(self, a_op, n, dtype, param)
+        self.ws = ws if ws is not None else (
+            torch.zeros(lanes, n, dtype=dtype, device=device),
+            torch.zeros(lanes, dtype=dtype, device=device))
+        self.run = self._ws0 = None
+        self.steps = self.solves = self.setup_steps = 0
+
+    def begin(self, run):
+        self.run, self._ws0 = run, self.ws
+
+    def end(self):
+        self.ws = _sel(self.run, self.ws, self._ws0)
+        self.run = self._ws0 = None
+
+    def spd_apply(self, z):
+        return z + self.a_op.rmatvec(self.a_op.matvec(z))
+
+    def m_solve(self, r1, r2):
+        xw, worst = self.ws
+        z1, rel2, steps = _cg(self.spd_apply, r1 - self.a_op.rmatvec(r2), xw,
+                              self.cg_tol, self.max_cg, self.inv_diag,
+                              self.run)
+        self.ws = (z1, torch.maximum(worst, rel2))
+        self.steps += steps
+        self.solves += 1
+        return z1, r2 + self.a_op.matvec(z1)
+
+    def setup_solve(self, r1, r2):
+        z1, _, self.setup_steps = _cg(
+            self.spd_apply, r1 - self.a_op.rmatvec(r2), torch.zeros_like(r1),
+            self.setup_tol, self.setup_max, self.inv_diag)
+        return z1, r2 + self.a_op.matvec(z1)
+
+    def diag(self) -> dict:
+        """Each lane's worst relative resolvent residual and the target,
+        (B,) tensors, and the lockstep CG steps of this call's resolvents
+        and of the border's solve."""
+        worst = torch.sqrt(self.ws[1])
+        return {"cg_worst_rel": worst,
+                "cg_tol": torch.full_like(worst, self.cg_tol),
+                "cg_steps": self.steps, "cg_solves": self.solves,
+                "cg_setup_steps": self.setup_steps}
+
+
 def _run_halpern_dr(t_map, pair, check, z0, k, cap, status, crits,
-                    check_period, aux=None):
+                    check_period, aux=None, carry=None):
     """Restarted Halpern on the DR variable (``direct._run_halpern_dr``)
-    over lanes."""
+    over lanes; ``carry`` as in :func:`_run_plain`."""
     dtype = z0.dtype
     lanes = k.shape[0]
     z = rz = z0
@@ -827,6 +973,8 @@ def _run_halpern_dr(t_map, pair, check, z0, k, cap, status, crits,
                                       device=z0.device)
     run = _running(status, k, cap)
     while bool(run.any()):
+        if carry is not None:
+            carry.begin(run)
         w, wa = _weights(ke, check_period, dtype)
         zn = z
         for j in range(check_period):
@@ -835,6 +983,8 @@ def _run_halpern_dr(t_map, pair, check, z0, k, cap, status, crits,
         ken = ke + check_period
         kn = k + check_period
         tz = t_map(zn)
+        if carry is not None:
+            carry.end()
         fp = _norm(tz - zn)
         st, cr = check(*pair(tz), kn, cap)
         restart = ((fp <= 0.2 * fp_rst)
@@ -893,25 +1043,36 @@ def _solve_direct(c, a_op, b, cone, param, warm_start, resume_state):
         v0[:, n:n + m] = cone.project(b_it - a_op.matvec(u0[:, :n]),
                                       dual=False)
     aux_c = resume_aux if resume_aux is not None else {}
-    cache = SpdSolveBatch.from_aux(aux_c, dtype) \
-        or SpdSolveBatch.build(a_op.a)
+    indirect = None
+    if isinstance(a_op, BatchedDenseOp):
+        cache = SpdSolveBatch.from_aux(aux_c, dtype) \
+            or SpdSolveBatch.build(a_op.a)
 
-    def spd_solve(rhs):
-        z = cache.apply_inv(rhs)
-        for _ in range(cache.refine_steps):
-            z = z + cache.apply_inv(rhs - z - a_op.rmatvec(a_op.matvec(z)))
-        return z
+        def spd_solve(rhs):
+            z = cache.apply_inv(rhs)
+            for _ in range(cache.refine_steps):
+                z = z + cache.apply_inv(rhs - z
+                                        - a_op.rmatvec(a_op.matvec(z)))
+            return z
 
-    def m_solve(r1, r2):
-        z1 = spd_solve(r1 - a_op.rmatvec(r2))
-        return z1, r2 + a_op.matvec(z1)
+        def m_solve(r1, r2):
+            z1 = spd_solve(r1 - a_op.rmatvec(r2))
+            return z1, r2 + a_op.matvec(z1)
 
-    aux = cache.aux()
+        setup_solve = m_solve
+        aux = cache.aux()
+    else:
+        # any other operator: the indirect mode, as the JAX package takes
+        # it for every operator but a DenseOp
+        indirect = IndirectSolveBatch(a_op, n, dtype, device, param, lanes,
+                                      ws=aux_c.get("ws"))
+        m_solve, setup_solve = indirect.m_solve, indirect.setup_solve
+        aux = {}
     h = torch.cat([c_it, b_it], dim=-1)
     if "gh" in aux_c:
         gh, denom = aux_c["gh"], aux_c["denom"]
     else:
-        gh = torch.cat(m_solve(c_it, b_it), dim=-1)
+        gh = torch.cat(setup_solve(c_it, b_it), dim=-1)
         denom = 1.0 + _vdot(h, gh)
 
     def iq_solve(w):
@@ -961,7 +1122,7 @@ def _solve_direct(c, a_op, b, cone, param, warm_start, resume_state):
             else iq_solve(u0 + v0) - v0
         z, k, status, crits, hal_aux = _run_halpern_dr(
             t_map, pair, check, z0, k_start, cap, status, crits,
-            check_period, aux=hal_resume)
+            check_period, aux=hal_resume, carry=indirect)
         u, v = pair(z)
         if hal_resume is not None:
             # a terminal lane keeps the pair its checkpoint presented
@@ -971,11 +1132,16 @@ def _solve_direct(c, a_op, b, cone, param, warm_start, resume_state):
     else:
         u, v, k, status, crits, _ = _run_plain(
             update, check, u0, v0, k_start, cap, status, crits,
-            check_period)
+            check_period, carry=indirect)
     x, y = _scale_back(u[:, :n], u[:, n:n + m], u[:, -1:], eps_zero, sb, sc,
                        equil_d, equil_e)
-    return _result(x, y, k, k_start, status, crits,
-                   _checkpoint(param, "direct", u, v, k, aux, status, crits))
+    if indirect is not None:
+        aux["ws"] = indirect.ws
+    res = _result(x, y, k, k_start, status, crits,
+                  _checkpoint(param, "direct", u, v, k, aux, status, crits))
+    if indirect is not None:
+        res.diag.update(indirect.diag())
+    return res
 
 
 def solve_batch_jit(c, a, b, cone: ConeLayout,

@@ -45,13 +45,6 @@ from totsu_tpu_torch.solver.operator import (LinOp, BatchedDenseOp, DenseOp,
 from totsu_tpu_torch.solver.params import (SolverParam, SolverStatus,
                                            SolverError, effective_eps_inf)
 
-_NOT_PORTED = "is not ported yet (ROADMAP §1 item {})"
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} " + _NOT_PORTED.format(item))
-
-
 @dataclasses.dataclass(frozen=True)
 class SolveResult:
     """Solve output. ``status`` and ``iters`` are Python ints; ``x``/``y``

@@ -225,6 +225,29 @@ def _cg(apply_fn, rhs, x0, rel_tol: float, max_cg: int, inv_diag=None):
     return x, rr / den, steps
 
 
+def cg_settings(solver, a_op, n: int, dtype, param: SolverParam):
+    """Set the indirect mode's CG settings on ``solver``: ``cg_tol``,
+    ``max_cg``, ``setup_tol``, ``setup_max`` and ``inv_diag`` (the
+    Jacobi preconditioner from ``a_op.col_sqsum()``, or None), as
+    :class:`IndirectSolve` states them."""
+    eps_mach = float(torch.finfo(dtype).eps)
+    solver.cg_tol = max(min(param.eps_acc * 1e-2, 1e-8), 30.0 * eps_mach)
+    solver.max_cg = min(n, 500)
+    solver.setup_tol = max(solver.cg_tol * 1e-2, 4.0 * eps_mach)
+    solver.setup_max = min(4 * n, 4000)
+    if param.cg_precond not in ("auto", "jacobi", "none"):
+        raise ValueError(
+            f"unknown cg_precond {param.cg_precond!r}; expected "
+            "'auto', 'jacobi' or 'none'")
+    solver.inv_diag = None
+    if param.cg_precond in ("auto", "jacobi"):
+        try:
+            solver.inv_diag = 1.0 / (1.0 + a_op.col_sqsum().to(dtype))
+        except NotImplementedError:
+            if param.cg_precond == "jacobi":
+                raise
+
+
 class IndirectSolve:
     """The indirect mode's M-solve on any :class:`LinOp`: warm-started CG
     on I + A^T A. ``ws = (z1, worst_rel2)`` is the last resolvent's
@@ -245,22 +268,7 @@ class IndirectSolve:
     def __init__(self, a_op, n: int, dtype, device, param: SolverParam,
                  ws=None):
         self.a_op = a_op
-        eps_mach = float(torch.finfo(dtype).eps)
-        self.cg_tol = max(min(param.eps_acc * 1e-2, 1e-8), 30.0 * eps_mach)
-        self.max_cg = min(n, 500)
-        self.setup_tol = max(self.cg_tol * 1e-2, 4.0 * eps_mach)
-        self.setup_max = min(4 * n, 4000)
-        if param.cg_precond not in ("auto", "jacobi", "none"):
-            raise ValueError(
-                f"unknown cg_precond {param.cg_precond!r}; expected "
-                "'auto', 'jacobi' or 'none'")
-        self.inv_diag = None
-        if param.cg_precond in ("auto", "jacobi"):
-            try:
-                self.inv_diag = 1.0 / (1.0 + a_op.col_sqsum().to(dtype))
-            except NotImplementedError:
-                if param.cg_precond == "jacobi":
-                    raise
+        cg_settings(self, a_op, n, dtype, param)
         self.ws = ws if ws is not None else (
             torch.zeros(n, dtype=dtype, device=device),
             torch.zeros((), dtype=dtype, device=device))

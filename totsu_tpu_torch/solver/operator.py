@@ -20,7 +20,7 @@ JAX package's ``Precision.HIGHEST`` pins.
 
 import contextlib
 import dataclasses
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -1073,6 +1073,505 @@ class BlockedEllOp(LinOp):
                      self.blocks.permute(0, 2, 1, 3), accumulate=True)
         d = d.permute(0, 2, 1, 3).reshape(nbr * bm, nbc * bn)
         return d[:self.m, :self.n]
+
+
+def _flatten(obj, every: bool = False
+             ) -> Tuple[List[torch.Tensor], Callable]:
+    """The floating (strided) tensors inside ``obj`` (a tensor, a LinOp
+    dataclass, tuples, lists and dicts of them; ``every``: every strided
+    tensor, integer indices too) and a function that rebuilds ``obj``
+    with other tensors in their places."""
+    if isinstance(obj, torch.Tensor):
+        if obj.layout == torch.strided and (every
+                                            or obj.is_floating_point()):
+            return [obj], lambda ls: ls[0]
+        return [], lambda ls: obj
+    if isinstance(obj, LinOp) and dataclasses.is_dataclass(obj):
+        names = [f.name for f in dataclasses.fields(obj) if f.init]
+        inner, rebuild = _flatten([getattr(obj, k) for k in names], every)
+        if not inner:
+            return [], lambda ls: obj
+        return inner, lambda ls: dataclasses.replace(
+            obj, **dict(zip(names, rebuild(ls))))
+    if isinstance(obj, dict):
+        keys = list(obj)
+        inner, rebuild = _flatten([obj[k] for k in keys], every)
+        return inner, lambda ls: dict(zip(keys, rebuild(ls)))
+    if isinstance(obj, (tuple, list)):
+        parts = [_flatten(item, every) for item in obj]
+        sizes = [len(p[0]) for p in parts]
+        leaves = [t for p in parts for t in p[0]]
+
+        def rebuild(ls):
+            out, off = [], 0
+            for (_, rb), k in zip(parts, sizes):
+                out.append(rb(ls[off:off + k]))
+                off += k
+            return type(obj)(out)
+
+        return leaves, rebuild
+    return [], lambda ls: obj
+
+
+def _structure(obj, path: str):
+    """``(path, what)`` for every part of ``obj`` that two lanes of a
+    batch must share: each operator's class, each tensor's shape, dtype
+    and layout, every other field's value (a function by identity, as
+    JAX compares the static fields of a pytree)."""
+    if isinstance(obj, torch.Tensor):
+        return [(path, ("tensor", tuple(obj.shape), obj.dtype, obj.layout))]
+    if isinstance(obj, LinOp) and dataclasses.is_dataclass(obj):
+        out = [(path, ("class", type(obj)))]
+        for f in dataclasses.fields(obj):
+            if f.init and f.name != "device":
+                out += _structure(getattr(obj, f.name), f"{path}.{f.name}")
+        return out
+    if isinstance(obj, dict):
+        return [(path, ("keys", tuple(obj)))] + [
+            p for k in obj for p in _structure(obj[k], f"{path}[{k!r}]")]
+    if isinstance(obj, (tuple, list)):
+        return [(path, ("len", len(obj)))] + [
+            p for i, o in enumerate(obj)
+            for p in _structure(o, f"{path}[{i}]")]
+    return [(path, ("value", obj))]
+
+
+def _same(a, b) -> bool:
+    if a[0] == "value" and b[0] == "value" and (callable(a[1])
+                                                or callable(b[1])):
+        return a[1] is b[1]
+    return a == b
+
+
+def _tensor_scalars(op: LinOp) -> LinOp:
+    """``op`` with every ``ScaledOp`` factor a 0-d tensor of its data's
+    dtype on its device, so that the lanes' factors stack."""
+    if isinstance(op, ScaledOp):
+        alpha = op.alpha
+        if not isinstance(alpha, torch.Tensor):
+            alpha = torch.tensor(alpha, device=op.device,
+                                 dtype=op.dtype or torch.get_default_dtype())
+        return ScaledOp(alpha, _tensor_scalars(op.op))
+    if isinstance(op, (VStackOp, HStackOp)):
+        return type(op)(tuple(_tensor_scalars(o) for o in op.ops))
+    return op
+
+
+def _sparse_inside(op: LinOp) -> bool:
+    if isinstance(op, SparseOp):
+        return True
+    if isinstance(op, (VStackOp, HStackOp)):
+        return any(_sparse_inside(o) for o in op.ops)
+    return isinstance(op, ScaledOp) and _sparse_inside(op.op)
+
+
+def _vjp_adjoint(matvec_fn, n: int):
+    """A ``CustomOp`` adjoint from ``torch.func.vjp`` of ``matvec_fn(params,
+    .)`` at zero: the default adjoint (``torch.autograd.grad``) does not
+    compose with ``torch.func.vmap``, this one does (the counterpart of a
+    vmapped ``jax.linear_transpose``)."""
+    def rmatvec(params, y):
+        x = torch.zeros(n, dtype=y.dtype, device=y.device)
+        _, pull = torch.func.vjp(lambda z: matvec_fn(params, z), x)
+        return pull(y)[0]
+    return rmatvec
+
+
+def _vmappable(op: LinOp) -> LinOp:
+    """``op`` as the batch's vmapped methods rebuild it: every ``CustomOp``
+    without an adjoint of its own gets :func:`_vjp_adjoint`."""
+    if isinstance(op, CustomOp) and op.rmatvec_fn is None:
+        return dataclasses.replace(op, rmatvec_fn=_vjp_adjoint(op.matvec_fn,
+                                                               op.n))
+    if isinstance(op, ScaledOp):
+        return ScaledOp(op.alpha, _vmappable(op.op))
+    if isinstance(op, (VStackOp, HStackOp)):
+        return type(op)(tuple(_vmappable(o) for o in op.ops))
+    return op
+
+
+def _widen(t, x):
+    """Stored data in the vectors' dtype (a bf16 copy, ``matvec_dtype``,
+    widens per call)."""
+    return t if t.dtype == x.dtype else t.to(x.dtype)
+
+
+def _explicit(op: LinOp, leaves: list):
+    """``(matvec, rmatvec)`` of a batch in lane-leading form, written out:
+    ``op`` is one lane's operator and ``leaves`` the batch's lane-leading
+    tensors in :func:`_flatten` order (``every``), consumed from the
+    front. None where a part has no such form (a ``CustomOp``). A
+    blocked-ELL product is one gather and one ``bmm`` over the B nbr tile
+    rows; a stack cuts and joins on the last axis. Each lane's products
+    are its single operator's."""
+    if isinstance(op, DiagOp):
+        d = leaves.pop(0)
+        return (lambda x: _widen(d, x) * x), (lambda y: _widen(d, y) * y)
+    if isinstance(op, ZeroOp):
+        return (lambda x: x.new_zeros(x.shape[0], op.m),
+                lambda y: y.new_zeros(y.shape[0], op.n))
+    if isinstance(op, DenseOp):
+        a = leaves.pop(0)
+        return (lambda x: torch.bmm(_widen(a, x), x[:, :, None])[:, :, 0],
+                lambda y: torch.bmm(y[:, None, :], _widen(a, y))[:, 0, :])
+    if isinstance(op, BlockedEllOp):
+        blocks, cols, blocks_t, cols_t = leaves[:4]
+        del leaves[:4]
+        return (_ell_product(blocks, cols, blocks_t.shape[1], op.bn, op.m),
+                _ell_product(blocks_t, cols_t, blocks.shape[1], op.bm, op.n))
+    if isinstance(op, ScaledOp):
+        alpha = op.alpha
+        if isinstance(alpha, torch.Tensor):
+            alpha = leaves.pop(0)[:, None]
+        inner = _explicit(op.op, leaves)
+        if inner is None:
+            return None
+        return (lambda x: alpha * inner[0](x), lambda y: alpha * inner[1](y))
+    if isinstance(op, (VStackOp, HStackOp)):
+        parts = [_explicit(o, leaves) for o in op.ops]
+        if any(p is None for p in parts):
+            return None
+        axis = 0 if isinstance(op, VStackOp) else 1
+        offs = np.cumsum([0] + [o.shape[axis] for o in op.ops]).tolist()
+
+        def join(k):
+            return lambda x: torch.cat([p[k](x) for p in parts], dim=-1)
+
+        def cut(k):
+            return lambda y: _sum(p[k](y[:, o0:o1]) for p, o0, o1
+                                  in zip(parts, offs[:-1], offs[1:]))
+
+        return (join(0), cut(1)) if axis == 0 else (cut(0), join(1))
+    del leaves[:len(_flatten(op, every=True)[0])]
+    return None
+
+
+def _ell_product(blocks, cols, n_in: int, width: int, rows: int):
+    """The lane-leading blocked-ELL product of ``BlockedEllOp._product``:
+    ``blocks`` (B, nr, r, K, width), ``cols`` (B, nr, K), the input padded
+    to ``n_in`` tiles of ``width``, the output cut to ``rows``. The
+    gather's indices carry each lane's offset into the flat input."""
+    lanes, nr, r, k, _ = blocks.shape
+    idx = (cols.long() + n_in * torch.arange(
+        lanes, device=cols.device)[:, None, None]).reshape(-1)
+
+    def product(x):
+        xp = torch.nn.functional.pad(x, (0, n_in * width - x.shape[1]))
+        gathered = xp.reshape(-1, width).index_select(0, idx)
+        y = torch.bmm(_widen(blocks, x).reshape(lanes * nr, r, k * width),
+                      gathered.view(lanes * nr, k * width, 1))
+        return y.view(lanes, -1)[:, :rows]
+
+    return product
+
+
+class BatchedOp(LinOp):
+    """B structured operators of one structure, one per lane of a lockstep
+    batch: the port of the JAX package's operator pytree whose leaves
+    carry a leading lane axis. ``shape`` is one lane's (m, n), ``batch`` is
+    B; every method takes lane-leading vectors, (B, n) and (B, m), and
+    returns lane-leading results.
+
+    ``BatchedOp(op, batch)`` wraps one operator whose tensors (floating
+    and index) all carry the lane axis, e.g. a ``BlockedEllOp`` with
+    ``blocks`` (B, nbr, bm, K, bn) and ``cols`` (B, nbr, K);
+    :meth:`stack` stacks B operators (the counterpart of
+    ``jax.tree_util.tree_map(jnp.stack, *ops)``; stacks of lanes go this
+    way). Stacking ``DenseOp`` s gives a :class:`BatchedDenseOp`, stacking
+    ``SparseOp`` s a :class:`BatchedSparseOp`.
+
+    Each method is ``torch.func.vmap`` of the single operator's method
+    over (the lanes' tensors, the vectors), as JAX vmaps it: the single
+    classes and their arithmetic are those of one solve. A ``CustomOp``
+    without an adjoint of its own takes :func:`_vjp_adjoint` here (the
+    single solve keeps its autograd adjoint). The products of every
+    operator but a ``CustomOp`` run in a lane-leading form written out
+    (:func:`_explicit`), which skips vmap's costs on the host (about
+    0.5 ms a call on the CPU); ``tests/test_torch_batched_op.py`` holds it
+    against the vmapped one. A ``SparseOp`` inside a stack does not batch
+    (``torch.func.vmap`` takes no sparse layout)."""
+
+    def __init__(self, op: LinOp, batch: int):
+        if isinstance(op, (BatchedOp, BatchedDenseOp)):
+            raise ValueError("BatchedOp wraps one operator, not a batch")
+        leaves, rebuild = _flatten(op, every=True)
+        if not leaves:
+            raise ValueError(
+                f"{type(op).__name__} holds no strided tensor with a lane "
+                "axis; batch such operators with BatchedOp.stack (a "
+                "SparseOp's batch is the batched BCOO's counterpart)")
+        bad = [tuple(t.shape) for t in leaves
+               if t.dim() == 0 or t.shape[0] != batch]
+        if bad:
+            raise ValueError(f"BatchedOp: every tensor of the operator needs "
+                             f"a leading lane axis of {batch}, got shapes "
+                             f"{bad}")
+        self._init(rebuild([t[0] for t in leaves]), leaves, batch)
+
+    def _init(self, template: LinOp, leaves, batch: int):
+        if _sparse_inside(template):
+            raise ValueError(
+                "a SparseOp inside a stack does not batch (torch.func.vmap "
+                "takes no sparse layout); batch the SparseOp alone with "
+                "BatchedOp.stack")
+        self.template = template
+        self.leaves = list(leaves)
+        self._batch = batch
+        self._lane = _flatten(template, every=True)[1]
+        self._vlane = _flatten(_vmappable(template), every=True)[1]
+        self._products = _explicit(template, list(leaves))
+
+    @classmethod
+    def _of(cls, template: LinOp, leaves, batch: int) -> "BatchedOp":
+        out = cls.__new__(cls)
+        out._init(template, leaves, batch)
+        return out
+
+    @staticmethod
+    def stack(ops) -> LinOp:
+        """B operators of one class and structure as one batch. Static
+        fields (``m``, ``n``, ``bm``, ``bn``, a stack's arity, a
+        ``CustomOp``'s functions, compared by identity) and the tensors'
+        shapes must agree across the lanes, else ``ValueError`` names the
+        field, as JAX's tree structure check refuses the stack."""
+        ops = [_tensor_scalars(o) for o in ops]
+        if not ops:
+            raise ValueError("BatchedOp.stack needs at least one operator")
+        ref = _structure(ops[0], type(ops[0]).__name__)
+        for i, o in enumerate(ops[1:], 1):
+            got = _structure(o, type(o).__name__)
+            # the static fields first, then the tensors' shapes, as JAX
+            # compares tree structures before leaves
+            for tensors in (False, True):
+                for (p0, w0), (p1, w1) in zip(ref, got):
+                    if (w0[0] == "tensor") == tensors and (
+                            p0 != p1 or not _same(w0, w1)):
+                        raise ValueError(
+                            f"BatchedOp.stack: lane {i}'s {p1} is "
+                            f"{_what(w1)}, lane 0's {p0} {_what(w0)}")
+            if len(got) != len(ref):
+                raise ValueError(f"BatchedOp.stack: lane {i}'s structure "
+                                 "differs from lane 0's")
+        if isinstance(ops[0], DenseOp):
+            return BatchedDenseOp(torch.stack([o.a for o in ops]))
+        if isinstance(ops[0], SparseOp):
+            return BatchedSparseOp(ops)
+        leaves = [torch.stack(ts) for ts in
+                  zip(*(_flatten(o, every=True)[0] for o in ops))]
+        return BatchedOp._of(ops[0], leaves, len(ops))
+
+    @property
+    def device(self):
+        return self.template.device
+
+    @property
+    def dtype(self):
+        return self.template.dtype
+
+    @property
+    def shape(self):
+        return self.template.shape
+
+    @property
+    def batch(self) -> int:
+        return self._batch
+
+    @staticmethod
+    def shared(op: LinOp, lanes: int) -> LinOp:
+        """One operator as every lane's: its tensors expanded to ``lanes``
+        (views, no copy); a ``SparseOp`` repeated in the block diagonal."""
+        if isinstance(op, DenseOp):
+            return BatchedDenseOp(op.a.expand(lanes, *op.a.shape))
+        if isinstance(op, SparseOp):
+            return BatchedSparseOp([op] * lanes)
+        leaves = _flatten(op, every=True)[0]
+        return BatchedOp._of(op, [t.expand(lanes, *t.shape) for t in leaves],
+                             lanes)
+
+    def lane(self, i: int) -> LinOp:
+        """Lane ``i`` as its single operator (views of the lane's
+        tensors)."""
+        return self.lane_of([t[i] for t in self.leaves])
+
+    def lane_of(self, leaves) -> LinOp:
+        """The single operator of one lane's tensors, in the order of
+        ``leaves``."""
+        return self._lane(list(leaves))
+
+    def lanes(self, i0: int, i1: int) -> "BatchedOp":
+        """Lanes ``[i0, i1)`` as a batch (views)."""
+        return BatchedOp._of(self.template, [t[i0:i1] for t in self.leaves],
+                             len(range(self._batch)[i0:i1]))
+
+    def with_leaves(self, leaves) -> "BatchedOp":
+        """This batch with other lane-leading tensors in the places of
+        ``leaves`` (same order, shapes and dtypes)."""
+        return BatchedOp._of(self.template, leaves, self._batch)
+
+    def _map(self, fn, *vecs):
+        """``fn(lane operator, *lane vectors)`` over the lanes."""
+        rebuild = self._vlane
+        return torch.func.vmap(lambda ls, *vs: fn(rebuild(ls), *vs))(
+            self.leaves, *vecs)
+
+    def matvec(self, x):
+        if self._products is not None:
+            return self._products[0](x)
+        return self._map(lambda op, v: op.matvec(v), x)
+
+    def rmatvec(self, y):
+        if self._products is not None:
+            return self._products[1](y)
+        return self._map(lambda op, v: op.rmatvec(v), y)
+
+    def dual_matvec(self, u, v):
+        if self._products is not None:
+            return self._products[0](u), self._products[1](v)
+        return self._map(lambda op, a, b: (op.matvec(a), op.rmatvec(b)), u, v)
+
+    def col_abssum(self):
+        return self._map(lambda op: op.col_abssum())
+
+    def row_abssum(self):
+        return self._map(lambda op: op.row_abssum())
+
+    def row_absmax(self):
+        return self._map(lambda op: op.row_absmax())
+
+    def col_absmax(self):
+        return self._map(lambda op: op.col_absmax())
+
+    def col_sqsum(self):
+        return self._map(lambda op: op.col_sqsum())
+
+    def diag_scale(self, d, e):
+        """Each lane's diag(d_i) A_i diag(e_i), d (B, m) and e (B, n), as a
+        batch of the same structure."""
+        template = self.template.diag_scale(d[0], e[0])
+        leaves = self._map(
+            lambda op, di, ei: _flatten(op.diag_scale(di, ei), True)[0],
+            d, e)
+        return BatchedOp._of(template, leaves, self._batch)
+
+    def astype(self, dtype):
+        template = self.template.astype(dtype)
+        new = _flatten(template, every=True)[0]
+        return BatchedOp._of(template, [t.to(s.dtype) for t, s in
+                                        zip(self.leaves, new)], self._batch)
+
+    def to_dense(self):
+        return torch.stack([self.lane(i).to_dense()
+                            for i in range(self._batch)])
+
+
+def _what(w) -> str:
+    if w[0] == "class":
+        return w[1].__name__
+    if w[0] == "tensor":
+        return f"a tensor of shape {w[1]} ({w[2]})"
+    return repr(w[1])
+
+
+class BatchedSparseOp(BatchedOp):
+    """B ``SparseOp`` s as one block-diagonal sparse matrix of (B m) x (B n),
+    each lane's coordinates offset by its lane: one SpMV serves every
+    lane, and the segment reductions reshape to (B, m) and (B, n).
+    ``torch.func.vmap`` takes no sparse layout, so this form is written
+    out; the lanes' coordinate lists may differ in length. Its tensors
+    are sparse: ``leaves`` is empty (no autograd input)."""
+
+    def __init__(self, ops):
+        ops = list(ops)
+        m, n = ops[0].shape
+        idx, vals = [], []
+        for i, o in enumerate(ops):
+            idx.append(o.mat._indices() + self._offset(i, m, n, o.device))
+            vals.append(o.mat._values())
+        big = torch.sparse_coo_tensor(
+            torch.cat(idx, dim=1), torch.cat(vals),
+            (len(ops) * m, len(ops) * n),
+            is_coalesced=all(o.mat.is_coalesced() for o in ops),
+            check_invariants=False)
+        self._hold(SparseOp(big), (m, n), [t.shape[1] for t in idx])
+
+    @staticmethod
+    def _offset(i, m, n, device):
+        return torch.tensor([[i * m], [i * n]], dtype=torch.int64,
+                            device=device)
+
+    def _hold(self, big: SparseOp, lane_shape, counts):
+        self.big = big
+        self.leaves = []
+        self._shape = lane_shape
+        self._batch = len(counts)
+        self._counts = list(counts)
+
+    @property
+    def device(self):
+        return self.big.device
+
+    @property
+    def dtype(self):
+        return self.big.dtype
+
+    @property
+    def shape(self):
+        return self._shape
+
+    def _with(self, big: SparseOp) -> "BatchedSparseOp":
+        out = BatchedSparseOp.__new__(BatchedSparseOp)
+        out._hold(big, self._shape, self._counts)
+        return out
+
+    def with_leaves(self, leaves) -> "BatchedSparseOp":
+        return self
+
+    def lane(self, i: int) -> SparseOp:
+        m, n = self._shape
+        p0 = sum(self._counts[:i])
+        p1 = p0 + self._counts[i]
+        mat = self.big.mat
+        return SparseOp(torch.sparse_coo_tensor(
+            mat._indices()[:, p0:p1] - self._offset(i, m, n, self.device),
+            mat._values()[p0:p1], (m, n), is_coalesced=mat.is_coalesced(),
+            check_invariants=False))
+
+    def lanes(self, i0: int, i1: int) -> "BatchedSparseOp":
+        return BatchedSparseOp([self.lane(i)
+                                for i in range(self._batch)[i0:i1]])
+
+    def _rows(self, t):
+        return t.view(self._batch, -1)
+
+    def matvec(self, x):
+        return self._rows(self.big.matvec(x.reshape(-1)))
+
+    def rmatvec(self, y):
+        return self._rows(self.big.rmatvec(y.reshape(-1)))
+
+    def dual_matvec(self, u, v):
+        return self.matvec(u), self.rmatvec(v)
+
+    def col_abssum(self):
+        return self._rows(self.big.col_abssum())
+
+    def row_abssum(self):
+        return self._rows(self.big.row_abssum())
+
+    def row_absmax(self):
+        return self._rows(self.big.row_absmax())
+
+    def col_absmax(self):
+        return self._rows(self.big.col_absmax())
+
+    def col_sqsum(self):
+        return self._rows(self.big.col_sqsum())
+
+    def diag_scale(self, d, e):
+        return self._with(self.big.diag_scale(d.reshape(-1), e.reshape(-1)))
+
+    def astype(self, dtype):
+        return self._with(self.big.astype(dtype))
 
 
 def as_linop(a, device=None) -> LinOp:
