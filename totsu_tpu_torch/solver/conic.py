@@ -44,6 +44,7 @@ from totsu_tpu_torch.solver.operator import (LinOp, BatchedDenseOp, DenseOp,
                                             pin_dtype)
 from totsu_tpu_torch.solver.params import (SolverParam, SolverStatus,
                                            SolverError, effective_eps_inf)
+from totsu_tpu_torch.utils.trace import span
 
 @dataclasses.dataclass(frozen=True)
 class SolveResult:
@@ -641,9 +642,10 @@ def solve_jit(
     the CUDA card (a tensor A on another device than ``device`` raises),
     and a ``c`` or ``b`` that is not a tensor follows A. ``profile='fast'``
     is resolved first; ``method='direct'`` then runs the direct engine.
-    Every product runs in full f32 (:func:`full_f32_matmul`).
+    Every product runs in full f32 (:func:`full_f32_matmul`). While a torch
+    profiler records, the call is its range ``totsu.solve``.
     """
-    with full_f32_matmul():
+    with span("totsu.solve"), full_f32_matmul():
         return _solve_jit(c, a, b, cone, param, warm_start, resume_state,
                           row_sharding, device)
 

@@ -47,6 +47,7 @@ from totsu_tpu_torch.solver.operator import (DenseOp, full_f32_matmul,
                                             pin_dtype)
 from totsu_tpu_torch.solver.params import (SolverParam, SolverStatus,
                                            effective_eps_inf)
+from totsu_tpu_torch.utils.trace import span
 
 
 def _matmul(x, y):
@@ -119,12 +120,13 @@ def spd_cache(amat) -> SpdSolve:
     """Factor M = I + A^T A for an (m, n) A: Cholesky in f64, else the
     Newton-Schulz inverse with two refinement steps per solve."""
     n = amat.shape[1]
-    spd = torch.eye(n, dtype=amat.dtype, device=amat.device) \
-        + _matmul(amat.T, amat)
-    if amat.dtype == torch.float64:
-        return SpdSolve(torch.linalg.cholesky(spd), True, 0)
-    prec, steps = newton_schulz_inverse(spd)
-    return SpdSolve(prec, False, steps)
+    with span("totsu.direct.cache"):
+        spd = torch.eye(n, dtype=amat.dtype, device=amat.device) \
+            + _matmul(amat.T, amat)
+        if amat.dtype == torch.float64:
+            return SpdSolve(torch.linalg.cholesky(spd), True, 0)
+        prec, steps = newton_schulz_inverse(spd)
+        return SpdSolve(prec, False, steps)
 
 
 def _run_halpern_dr(t_map, pair, check, z0, k: int, status: int, crits,
@@ -154,28 +156,30 @@ def _run_halpern_dr(t_map, pair, check, z0, k: int, status: int, crits,
         fp_rst = fp_last = torch.tensor(float("inf"), dtype=dtype,
                                         device=z0.device)
     while status == SolverStatus.RUNNING and k < cap:
-        for _ in range(check_period):
+        with span("totsu.loop.iterate"):
+            for _ in range(check_period):
+                tz = t_map(z)
+                w, wa = _halpern_weights(ndt, ke)
+                z = w * (2.0 * tz - z) + wa * anchor
+                ke += 1
+        with span("totsu.loop.check"):
+            k += check_period
             tz = t_map(z)
-            w, wa = _halpern_weights(ndt, ke)
-            z = w * (2.0 * tz - z) + wa * anchor
-            ke += 1
-        k += check_period
-        tz = t_map(z)
-        fp = torch.linalg.vector_norm(tz - z)
-        st, crits = check(*pair(tz), k)
-        restart = (fp <= 0.2 * fp_rst) \
-            | ((fp <= 0.8 * fp_rst) & (fp > fp_last)) \
-            | _artificial_restart(ndt, ke, k, check_period)
-        status, restart = (int(x) for x in
-                           torch.stack([st, restart.to(torch.int32)]).tolist())
-        rz = tz if restart else z
-        if restart or status != SolverStatus.RUNNING:
-            z = tz
-        if restart:
-            anchor = tz
-            ke = 0
-            fp_rst = fp
-        fp_last = fp
+            fp = torch.linalg.vector_norm(tz - z)
+            st, crits = check(*pair(tz), k)
+            restart = (fp <= 0.2 * fp_rst) \
+                | ((fp <= 0.8 * fp_rst) & (fp > fp_last)) \
+                | _artificial_restart(ndt, ke, k, check_period)
+            status, restart = (int(x) for x in torch.stack(
+                [st, restart.to(torch.int32)]).tolist())
+            rz = tz if restart else z
+            if restart or status != SolverStatus.RUNNING:
+                z = tz
+            if restart:
+                anchor = tz
+                ke = 0
+                fp_rst = fp
+            fp_last = fp
     return z, k, status, crits, {"anchor": anchor, "ke": ke,
                                  "fp_rst": fp_rst, "fp_last": fp_last,
                                  "z": rz}
